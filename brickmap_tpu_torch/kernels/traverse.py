@@ -1,0 +1,109 @@
+"""Kernel B2: the hierarchical traversal behind :func:`trace`.
+
+The port of ``brickmap_tpu/pallas/traverse3.py::trace_rays_paged`` (:868).
+:func:`trace` clips the rays to the world box with the torch
+:func:`~brickmap_tpu_torch.ops.traverse.aabb_clip`, then launches the CUDA
+kernel ``csrc/traverse.cu`` (one thread per ray) for rays on the card.  For
+rays on the CPU it runs the plain version
+:func:`brickmap_tpu_torch.ops.traverse.trace_rays`; on any other device it
+raises.  ``trace.launches`` counts kernel launches.
+
+The result is the ``trace_rays_paged`` contract (traverse3.py:938-947):
+``hit``, ``t``, ``normal``, ``request``, ``request_pos``, ``exhausted``,
+``resume_t`` and ``iters`` (the most DDA steps any ray took), plus the
+per-ray step count ``ray_iters``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..config import GridConfig
+from ..ops.traverse import aabb_clip, trace_rays
+from . import build
+
+__all__ = ["trace"]
+
+_F32, _I32 = torch.float32, torch.int32
+_KEYS = ("hit", "t", "normal", "request", "request_pos", "exhausted",
+         "resume_t", "ray_iters", "iters")
+
+
+def _bind(lib) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.traverse_launch.argtypes = (
+        [i, p, p, p, p, p, p, p, p]          # n, rays, scene
+        + [i] * 12 + [f, i]                  # grid, camera, LoD, brick, eps..
+        + [p] * 8 + [p])                     # outputs, stream
+    lib.traverse_launch.restype = i
+
+
+def trace(origins: torch.Tensor, dirs: torch.Tensor, scene, cam_brick,
+          grid: GridConfig, max_steps: int) -> dict:
+    """Trace [N, 3] float32 world-space rays through ``scene`` (a
+    :class:`~brickmap_tpu_torch.scene.TorchScene` on the rays' device).
+
+    ``cam_brick``: 3 ints, the camera position in bricks (LoD origin).
+    ``max_steps``: DDA steps per ray shared by the three levels; a ray still
+    going after that many is ``exhausted`` with its ``resume_t``.
+    """
+    dev = origins.device
+    cam = tuple(int(c) for c in cam_brick)
+    if dev.type == "cpu":
+        res = trace_rays(origins, dirs, scene.index_volume, scene.pool_words,
+                         scene.pool_base, cam, grid, max_iters=max_steps)
+        return {k: res[k] for k in _KEYS}
+    if dev.type != "cuda":
+        raise ValueError(f"trace: unsupported device {dev}")
+    n = origins.shape[0]
+    for name, a in (("origins", origins), ("dirs", dirs)):
+        if a.dtype != _F32 or a.shape != (n, 3) or a.device != dev:
+            raise ValueError(f"{name} must be float32 [N, 3] on {dev}")
+    for name, a in (("index_volume", scene.index_volume),
+                    ("pool_words", scene.pool_words),
+                    ("pool_base", scene.pool_base)):
+        if a.dtype != _I32 or a.device != dev or not a.is_contiguous():
+            raise ValueError(f"scene.{name} must be contiguous int32 on {dev}")
+    if tuple(scene.index_volume.shape) != (grid.cells_height, grid.cells,
+                                           grid.cells):
+        raise ValueError("scene.index_volume does not match the grid")
+
+    ok, tminn, clipped, entry_normal = aabb_clip(origins, dirs, grid)
+    d = dirs.contiguous()
+    clipped, entry_normal = clipped.contiguous(), entry_normal.contiguous()
+    ok, tminn = ok.contiguous(), tminn.contiguous()
+
+    def empty(*shape, dtype=_F32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = {
+        "hit": empty(n, dtype=torch.bool), "t": empty(n),
+        "normal": empty(n, 3), "request": empty(n, dtype=torch.bool),
+        "request_pos": empty(n, 3, dtype=_I32),
+        "exhausted": empty(n, dtype=torch.bool), "resume_t": empty(n),
+        "ray_iters": empty(n, dtype=_I32),
+    }
+    if n:
+        lib = build.load("traverse", _bind)
+        with torch.cuda.device(dev):
+            status = lib.traverse_launch(
+                n, clipped.data_ptr(), d.data_ptr(), entry_normal.data_ptr(),
+                tminn.data_ptr(), ok.data_ptr(),
+                scene.index_volume.data_ptr(), scene.pool_words.data_ptr(),
+                scene.pool_base.data_ptr(), grid.cells, grid.cells,
+                grid.cells_height, grid.supergrid_cell_size,
+                grid.supergrid_xy, grid.num_superchunks, *cam,
+                grid.lod_distance_8, grid.lod_distance_2, grid.brick_size,
+                grid.epsilon, max_steps,
+                *(out[k].data_ptr() for k in _KEYS[:-1]),
+                torch.cuda.current_stream(dev).cuda_stream)
+        build.check(status, "traverse_kernel")
+        trace.launches += 1
+    out["iters"] = out["ray_iters"].amax() if n else torch.zeros(
+        (), dtype=_I32, device=dev)
+    return out
+
+
+trace.launches = 0
