@@ -14,12 +14,18 @@ smaller worlds.
 On the card, waves are timed with CUDA events around work that ends in
 ``torch.cuda.synchronize``; on the CPU (tests) with the host clock.  Each
 result names the device it ran on.
+
+:func:`run_sparse_inverse_benchmark` is the port of
+``bench.py::_sparse_bwd_full_bench``: one training step of the sparse
+inverse renderer over the full world at 1920x1080 rays, timed by host clock
+around work that ends in a synchronise.
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from ..config import BrickmapConfig
@@ -171,3 +177,205 @@ def run_forward_benchmark(scene, cfg: BrickmapConfig, *,
         "bounces": cfg.render.max_bounces,
         "device": device_name(dev),
     }
+
+
+# The sparse step's segments per ray (bench.py:404), and the learning rate
+# and step count of its Adam steps (``inverse --sparse``'s default update).
+SPARSE_K = 8
+SPARSE_LR = 0.05
+SPARSE_ADAM_STEPS = 3
+
+
+class KernelTimes:
+    """CUDA-event times of kernel launches while open: each wrapper's
+    ``events`` hook (:mod:`brickmap_tpu_torch.kernels`) is a list inside the
+    context and ``None`` again after it."""
+
+    def __init__(self, **wrappers):
+        self.wrappers = wrappers
+
+    def __enter__(self):
+        for w in self.wrappers.values():
+            w.events = []
+        return self
+
+    def __exit__(self, *exc):
+        for w in self.wrappers.values():
+            w.events = None
+        return False
+
+    def take(self) -> dict:
+        """``{name: (summed ms, launches)}`` since the last call."""
+        if self.wrappers:
+            torch.cuda.synchronize()
+        out = {}
+        for name, w in self.wrappers.items():
+            out[name] = (sum(a.elapsed_time(b) for a, b in w.events),
+                         len(w.events))
+            w.events.clear()
+        return out
+
+
+def sparse_inverse_rays(n: int, grid, device):
+    """The sparse benchmark's frame (``bench.py:402-414``, seed 0): origins
+    uniform over the central half of the world in x and y ([1024, 3072]^2 in
+    the 4096^2 x 512 world) at z = 500/512 of its height, directions
+    ``normal`` with d_z = -|d_z| - 1, normalised; background 0, target
+    0.4."""
+    rng = np.random.default_rng(0)
+    m = float(grid.grid_size)
+    ox = rng.uniform(0.25 * m, 0.75 * m, n).astype(np.float32)
+    oy = rng.uniform(0.25 * m, 0.75 * m, n).astype(np.float32)
+    oz = np.full(n, grid.grid_height * 500.0 / 512.0, np.float32)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs[:, 2] = -np.abs(dirs[:, 2]) - 1.0
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    origins = torch.from_numpy(np.stack([ox, oy, oz], 1)).to(device)
+    return (origins, torch.from_numpy(dirs).to(device),
+            torch.zeros((n, 3), dtype=torch.float32, device=device),
+            torch.full((n, 3), 0.4, dtype=torch.float32, device=device))
+
+
+def active_fields(scene, grid, cells: torch.Tensor):
+    """The frame's active-brick set (``bench.py:416-440``): the pool rows of
+    the recorded ``cells``, a cellmap remapped onto them, and the fields
+    occupancy = bitmask * 0.8, albedo = 0.6 over those rows only (a frame's
+    gradients are zero on every brick it never records).
+    Returns (cellmap_a [CZ,CY,CX], occ [A,512], alb [A,512,3])."""
+    from .. import bits
+    from ..diff.sparse import cell_pool_map
+
+    cellmap = cell_pool_map(scene, grid)
+    valid = cells >= 0
+    c = cells[valid]
+    rows = cellmap[(c >> 20) & 0x3FF, (c >> 10) & 0x3FF, c & 0x3FF]
+    uniq = torch.unique(rows[rows >= 0])
+    a = uniq.shape[0]
+    inv = torch.full((scene.num_bricks,), -1, dtype=torch.int32,
+                     device=cells.device)
+    inv[uniq.long()] = torch.arange(a, dtype=torch.int32, device=cells.device)
+    cellmap_a = torch.where(cellmap >= 0,
+                            inv[torch.clamp(cellmap, min=0).long()], -1)
+    dense = bits.dense_from_brick_words(scene.pool_words[uniq.long()])
+    occ = dense.reshape(a, 512).to(torch.float32) * 0.8
+    alb = torch.full((a, 512, 3), 0.6, dtype=torch.float32,
+                     device=cells.device)
+    return cellmap_a, occ, alb
+
+
+def run_sparse_inverse_benchmark(scene, grid, *, width: int = 1920,
+                                 height: int = 1080) -> dict:
+    """The sparse inverse-rendering step at full width
+    (``bench.py::_sparse_bwd_full_bench``): one frame of width x height
+    rays over ``scene``, SPARSE_K segments, the fields restricted to the
+    frame's active bricks.  Times by host clock around work that ends in a
+    device synchronise: one uncached ``l2_loss_and_grads_sparse`` (record,
+    sorts, replay) after a warm-up, one with ``seg_cache`` (replay only),
+    then SPARSE_ADAM_STEPS Adam steps with the ``inverse --sparse`` update
+    and clip (the update alone timed apart as ``adam_update_s``).
+
+    On the card, the CUDA events of every launch of kernels B3, B4f and B4b
+    give ``kernels[stage][name] = (ms, launches)`` for the stages "prepass",
+    "warm-up", "uncached", "cache fill", "cached" and "adam".  The result
+    names the device.  ``frame`` holds the step's inputs after the Adam
+    steps (rays, ``background``, ``target``, ``cellmap``, ``occupancy``,
+    ``albedo``) and its filled ``seg_cache``, for checks of the caller.
+    """
+    from ..diff.optim import adam_step, make_adam
+    from ..diff.sparse import l2_loss_and_grads_sparse
+    from ..kernels import extract as kext, record as krec
+
+    dev = scene.device
+    cuda = dev.type == "cuda"
+    n = width * height
+    times = KernelTimes(**({"B3": krec.record_segments,
+                            "B4f": kext.extract_fwd,
+                            "B4b": kext.extract_bwd} if cuda else {}))
+    kernels: dict = {}
+    current = [None]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def stage(name):
+        """Close the current stage's kernel times, start ``name``'s."""
+        sync()
+        if current[0] is not None:
+            kernels[current[0]] = times.take()
+        current[0] = name
+        return time.perf_counter()
+
+    origins, dirs, bg, tgt = sparse_inverse_rays(n, grid, dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def step(cache=None):
+        return l2_loss_and_grads_sparse(origins, dirs, scene, cellmap, occ,
+                                        alb, bg, tgt, grid,
+                                        k_segments=SPARSE_K, seg_cache=cache)
+
+    with times:
+        t0 = stage("prepass")
+        segs = krec.record_segments(origins, dirs, scene, grid,
+                                    k_segments=SPARSE_K)
+        cellmap, occ, alb = active_fields(scene, grid, segs["cells"])
+        sync()
+        prepass_s = time.perf_counter() - t0
+        exhausted = int(segs["exhausted"].sum())
+        count = segs["count"]
+        live = int((count > 0).sum())
+        mean_count = float(count[count > 0].float().mean()) if live else 0.0
+        del segs, count
+
+        stage("warm-up")
+        step()
+        t0 = stage("uncached")
+        loss, (docc, dalb) = step()
+        sync()
+        uncached_s = time.perf_counter() - t0
+        grads_finite = bool(torch.isfinite(docc).all()) and bool(
+            torch.isfinite(dalb).all())
+        grads_nonzero = bool((docc != 0).any()) and bool((dalb != 0).any())
+        del docc, dalb
+
+        cache: dict = {}
+        stage("cache fill")
+        step(cache)
+        t0 = stage("cached")
+        step(cache)
+        sync()
+        cached_s = time.perf_counter() - t0
+
+        stage("adam")
+        opt = make_adam((occ, alb), SPARSE_LR)
+        losses, adam_s, update_s = [], [], []
+        for _ in range(SPARSE_ADAM_STEPS):
+            t0 = time.perf_counter()
+            loss_i, grads = step(cache)
+            sync()
+            t1 = time.perf_counter()
+            adam_step(opt, (occ, alb), grads)
+            losses.append(float(loss_i))
+            sync()
+            adam_s.append(time.perf_counter() - t0)
+            update_s.append(time.perf_counter() - t1)
+        del opt, grads
+        stage(None)
+    out = {
+        "rays": n, "k_segments": SPARSE_K, "active_bricks": int(occ.shape[0]),
+        "live_rays": live, "mean_count": mean_count, "exhausted": exhausted,
+        "prepass_s": prepass_s, "uncached_step_s": uncached_s,
+        "cached_step_s": cached_s, "adam_step_s": adam_s,
+        "adam_update_s": update_s, "loss": float(loss), "losses": losses,
+        "grads_finite": grads_finite, "grads_nonzero": grads_nonzero,
+        "mrays_per_s": n / uncached_s / 1e6,
+        "cached_mrays_per_s": n / cached_s / 1e6,
+        "kernels": kernels, "device": device_name(dev),
+        "frame": {"origins": origins, "dirs": dirs, "background": bg,
+                  "target": tgt, "cellmap": cellmap, "occupancy": occ,
+                  "albedo": alb, "seg_cache": cache},
+    }
+    if cuda:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out

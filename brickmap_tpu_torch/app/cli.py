@@ -1,11 +1,14 @@
 """Command-line harness of the port: ``python -m brickmap_tpu_torch <cmd>``.
 
-The ``render`` and ``bench`` subcommands of ``brickmap_tpu/app/cli.py``:
+The ``render``, ``bench`` and ``inverse`` subcommands of
+``brickmap_tpu/app/cli.py``:
 
-* ``render`` — progressive path-traced render of a terrain world to PNG.
-* ``bench``  — the 9-viewpoint scripted benchmark (performance_measure.cpp).
+* ``render``  — progressive path-traced render of a terrain world to PNG.
+* ``bench``   — the 9-viewpoint scripted benchmark (performance_measure.cpp).
+* ``inverse`` — inverse rendering with Adam: a dense grid, or with
+  ``--sparse`` the brick-pool fields of a terrain world.
 
-Both run on the card unless ``--device cpu`` asks for the CPU.
+All run on the card unless ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -132,6 +135,137 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_inverse(args) -> int:
+    """Inverse rendering: fit a dense voxel grid to rendered targets
+    (``brickmap_tpu`` cli.py:311-364), or with ``--sparse`` the brick-pool
+    fields of a terrain world (:func:`_cmd_inverse_sparse`)."""
+    from ..diff.optim import adam_step, make_adam
+    from ..diff.render import composite_rays, l2_loss_and_grads
+
+    dev = _device(args)
+    if args.sparse:
+        return _cmd_inverse_sparse(args, dev)
+
+    rng = np.random.default_rng(args.seed)
+    g = args.grid
+    # Ground truth: a floating blob of solid voxels with banded albedo.
+    occ_true = np.zeros((g, g, g), np.float32)
+    c = g // 2
+    zz, yy, xx = np.meshgrid(*[np.arange(g)] * 3, indexing="ij")
+    occ_true[(zz - c) ** 2 + (yy - c) ** 2 + (xx - c) ** 2 < (g // 3) ** 2] = 1
+    alb_true = np.stack([
+        0.2 + 0.6 * (zz / g), 0.3 + 0.4 * (yy / g), 0.8 - 0.5 * (xx / g)
+    ], -1).astype(np.float32)
+
+    n = args.rays
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    origins = (np.array([c, c, c]) - dirs * (2.2 * g)).astype(np.float32)
+
+    def dev_t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    origins, dirs = dev_t(origins), dev_t(dirs)
+    bg = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        target, _, _ = composite_rays(origins, dirs, dev_t(occ_true),
+                                      dev_t(alb_true), bg, max_steps=3 * g)
+
+    occ = torch.full((g, g, g), 0.3, device=dev)
+    alb = torch.full((g, g, g, 3), 0.5, device=dev)
+    opt = make_adam((occ, alb), args.lr)
+    t0 = time.perf_counter()
+    loss0 = loss = None
+    for step in range(args.steps):
+        loss, grads = l2_loss_and_grads(origins, dirs, occ, alb, bg, target,
+                                        max_steps=3 * g)
+        if loss0 is None:
+            loss0 = float(loss)
+        adam_step(opt, (occ, alb), grads)
+        if step % 20 == 0:
+            print(f"step {step}: loss {float(loss):.6f}", file=sys.stderr)
+    print(json.dumps({
+        "steps": args.steps, "loss_first": loss0,
+        "loss_final": None if loss is None else float(loss),
+        "seconds": time.perf_counter() - t0, "device": str(dev),
+    }))
+    return 0
+
+
+def _cmd_inverse_sparse(args, dev) -> int:
+    """Inverse rendering over the sparse brick pool (``brickmap_tpu``
+    cli.py:367-447): recover per-voxel albedo (and refine occupancy) of a
+    terrain world from rendered targets, through segment recording (B3) and
+    the bounded-K row replay (B4f/B4b)."""
+    from .. import scene as scene_mod
+    from ..config import GridConfig
+    from ..diff.optim import adam_step, make_adam
+    from ..diff.sparse import cell_pool_map, composite_sparse, \
+        l2_loss_and_grads_sparse, pool_fields_from_bitmask
+    from ..kernels.record import record_segments
+
+    K = 8
+    grid = GridConfig(grid_size=args.world, grid_height=args.world_height)
+    sc = scene_mod.generate_terrain_scene(grid, device=dev)
+    cellmap = cell_pool_map(sc, grid)
+    occ_true, _ = pool_fields_from_bitmask(sc)
+    print(f"terrain world {args.world}^2x{args.world_height}, "
+          f"{occ_true.shape[0]} resident bricks", file=sys.stderr)
+
+    # Ground-truth albedo: height bands over the brick pool's voxels.
+    zz, yy, xx = torch.nonzero(cellmap >= 0, as_tuple=True)
+    vz = torch.zeros((occ_true.shape[0], 512), dtype=torch.float32,
+                     device=dev)
+    vz[cellmap[zz, yy, xx].long()] = (
+        zz[:, None] * 8 + (torch.arange(512, device=dev) // 64)[None, :]
+    ).to(torch.float32) / args.world_height
+    alb_true = torch.stack([0.2 + 0.7 * vz, 0.5 + 0.3 * torch.sin(vz * 9.0),
+                            0.9 - 0.6 * vz], dim=-1)
+
+    rng = np.random.default_rng(args.seed)
+    n = args.rays
+    m = float(args.world)
+    ox = rng.uniform(0.05 * m, 0.95 * m, n).astype(np.float32)
+    oy = rng.uniform(0.05 * m, 0.95 * m, n).astype(np.float32)
+    oz = np.full(n, args.world_height - 2.0, np.float32)
+    origins = torch.from_numpy(np.stack([ox, oy, oz], 1)).to(dev)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs[:, 2] = -np.abs(dirs[:, 2]) - 0.7
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    dirs = torch.from_numpy(dirs).to(dev)
+    bg = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    segs = record_segments(origins, dirs, sc, grid, k_segments=K)
+    with torch.no_grad():
+        target, _ = composite_sparse(segs["o_cells"], dirs, segs, cellmap,
+                                     occ_true, alb_true, bg, grid,
+                                     k_segments=K)
+
+    occ = occ_true * 0.6    # soft start; recover hardness
+    alb = torch.full_like(alb_true, 0.5)
+    opt = make_adam((occ, alb), args.lr)
+    t0 = time.perf_counter()
+    loss0 = loss = None
+    seg_cache: dict = {}   # record + sorts are loop-invariant (fixed rays)
+    for step in range(args.steps):
+        loss, grads = l2_loss_and_grads_sparse(
+            origins, dirs, sc, cellmap, occ, alb, bg, target, grid,
+            k_segments=K, seg_cache=seg_cache)
+        if loss0 is None:
+            loss0 = float(loss)
+        adam_step(opt, (occ, alb), grads)
+        if step % 10 == 0:
+            print(f"step {step}: loss {float(loss):.6f}", file=sys.stderr)
+    print(json.dumps({
+        "mode": "sparse", "world": args.world, "rays": n,
+        "bricks": int(occ_true.shape[0]), "steps": args.steps,
+        "loss_first": loss0,
+        "loss_final": None if loss is None else float(loss),
+        "seconds": time.perf_counter() - t0, "device": str(dev),
+    }))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="brickmap_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -172,6 +306,23 @@ def main(argv=None) -> int:
     pb.add_argument("--waves", type=int, default=2)
     pb.add_argument("--warmup", type=int, default=1)
     pb.set_defaults(fn=cmd_bench)
+
+    pi = sub.add_parser("inverse", help="inverse-rendering optimization demo")
+    pi.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu for the plain "
+                         "versions of the kernels)")
+    pi.add_argument("--grid", type=int, default=24)
+    pi.add_argument("--rays", type=int, default=4096)
+    pi.add_argument("--steps", type=int, default=100)
+    pi.add_argument("--lr", type=float, default=0.05)
+    pi.add_argument("--seed", type=int, default=0)
+    pi.add_argument("--sparse", action="store_true",
+                    help="optimize the sparse brick-pool fields of a "
+                         "terrain world instead of a dense grid")
+    pi.add_argument("--world", type=int, default=256,
+                    help="terrain world size for --sparse")
+    pi.add_argument("--world-height", type=int, default=128)
+    pi.set_defaults(fn=cmd_inverse)
 
     args = p.parse_args(argv)
     try:

@@ -1,0 +1,138 @@
+"""Inverse-rendering optimizer: fit voxel occupancy + albedo to target
+images.
+
+The port of ``brickmap_tpu/diff/optim.py``: Adam with optax's defaults
+(beta 0.9 / 0.999, eps 1e-8) as :class:`torch.optim.Adam`, each step
+followed by a clip of the fields to [0, 1].  Checkpoints keep the JAX
+package's ``.npz`` layout (``step``, ``occupancy``, ``albedo`` and the optax
+state's leaves as ``opt_i`` in ``jax.tree_util.tree_flatten`` order:
+count, mu of each field, nu of each field), so a JAX checkpoint resumes here
+and the other way round.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+__all__ = ["InverseRenderer", "make_adam", "adam_step", "adam_state_arrays",
+           "load_adam_state"]
+
+
+def make_adam(params, learning_rate: float) -> torch.optim.Adam:
+    """Adam with optax's defaults over ``params`` (plain tensors)."""
+    return torch.optim.Adam(list(params), lr=learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def adam_step(opt: torch.optim.Adam, params, grads) -> None:
+    """One Adam update of ``params`` by ``grads``, then clip to [0, 1] (the
+    inverse loop of the JAX package: optax update, apply, clip)."""
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+    with torch.no_grad():
+        for p in params:
+            p.clamp_(0.0, 1.0)
+            p.grad = None
+
+
+def adam_state_arrays(opt: torch.optim.Adam, params) -> list[np.ndarray]:
+    """The optax ``adam`` state's leaves in tree-flatten order:
+    [count (int32), mu_0, ..., mu_k, nu_0, ..., nu_k]."""
+    states = [opt.state.get(p, {}) for p in params]
+    count = int(states[0]["step"]) if states[0] else 0
+    def moment(st, key, p):
+        return (st[key] if st else torch.zeros_like(p)).cpu().numpy()
+    return ([np.asarray(count, np.int32)]
+            + [moment(st, "exp_avg", p) for st, p in zip(states, params)]
+            + [moment(st, "exp_avg_sq", p) for st, p in zip(states, params)])
+
+
+def load_adam_state(opt: torch.optim.Adam, params, leaves) -> None:
+    """Inverse of :func:`adam_state_arrays`."""
+    k = len(params)
+    count = int(np.asarray(leaves[0]))
+    for i, p in enumerate(params):
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.as_tensor(leaves[1 + i], device=p.device)
+            .to(p.dtype).clone(),
+            "exp_avg_sq": torch.as_tensor(leaves[1 + k + i], device=p.device)
+            .to(p.dtype).clone(),
+        }
+
+
+@dataclass
+class InverseRenderer:
+    grid_shape: tuple = (32, 32, 32)     # (Z, Y, X)
+    learning_rate: float = 0.05
+    max_steps_per_ray: int = 128
+    rays_per_chunk: int = 32768
+    mesh: object | None = None           # multi-card sharding: not ported
+    metrics: object | None = None        # anything with .log(step, **kw)
+    device: str = "cuda"
+    step: int = field(default=0, init=False)
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "InverseRenderer(mesh=...): sharded training is not ported "
+                "yet (ROADMAP A12)")
+        self.occupancy = torch.full(self.grid_shape, 0.3,
+                                    dtype=torch.float32, device=self.device)
+        self.albedo = torch.full((*self.grid_shape, 3), 0.5,
+                                 dtype=torch.float32, device=self.device)
+        self._opt = make_adam(self._params, self.learning_rate)
+
+    @property
+    def _params(self):
+        return (self.occupancy, self.albedo)
+
+    # ------------------------------------------------------------------
+    def train_step(self, origins, directions, background, target) -> float:
+        """One gradient step on an L2 image loss; returns the loss."""
+        from .render import l2_loss_and_grads
+
+        loss, grads = l2_loss_and_grads(
+            origins, directions, self.occupancy, self.albedo, background,
+            target, max_steps=self.max_steps_per_ray,
+            rays_per_chunk=self.rays_per_chunk)
+        adam_step(self._opt, self._params, grads)
+        self.step += 1
+        if self.metrics is not None:
+            self.metrics.log(self.step, loss=float(loss))
+        return float(loss)
+
+    # ------------------------------------------------------------------
+    # Checkpoint / resume in the JAX package's npz layout.
+    def save_checkpoint(self, path: str) -> None:
+        leaves = adam_state_arrays(self._opt, self._params)
+        np.savez_compressed(
+            path,
+            step=np.asarray(self.step),
+            occupancy=self.occupancy.cpu().numpy(),
+            albedo=self.albedo.cpu().numpy(),
+            **{f"opt_{i}": a for i, a in enumerate(leaves)},
+        )
+
+    def load_checkpoint(self, path: str) -> None:
+        with np.load(path) as data:
+            self.step = int(data["step"])
+            with torch.no_grad():
+                self.occupancy.copy_(torch.from_numpy(data["occupancy"]))
+                self.albedo.copy_(torch.from_numpy(data["albedo"]))
+            n_leaves = 1 + 2 * len(self._params)
+            load_adam_state(self._opt, self._params,
+                            [data[f"opt_{i}"] for i in range(n_leaves)])
+
+    # ------------------------------------------------------------------
+    def render(self, origins, directions, background):
+        from .render import composite_rays
+
+        with torch.no_grad():
+            return composite_rays(origins, directions, self.occupancy,
+                                  self.albedo, background,
+                                  max_steps=self.max_steps_per_ray)

@@ -28,7 +28,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-KERNELS = ("brick", "traverse")
+KERNELS = ("brick", "traverse", "record", "extract")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]
@@ -121,3 +121,4 @@ def check(status: int, name: str) -> None:
     """Raise on a non-zero ``cudaError_t`` from a launcher."""
     if status != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {status}")
+

@@ -6,7 +6,8 @@ The port of ``brickmap_tpu/pallas/traverse3.py::trace_rays_paged`` (:868).
 kernel ``csrc/traverse.cu`` (one thread per ray) for rays on the card.  For
 rays on the CPU it runs the plain version
 :func:`brickmap_tpu_torch.ops.traverse.trace_rays`; on any other device it
-raises.  ``trace.launches`` counts kernel launches.
+raises.  ``trace.launches`` counts kernel launches; ``trace.events`` is
+the event hook of :mod:`brickmap_tpu_torch.kernels`.
 
 The result is the ``trace_rays_paged`` contract (traverse3.py:938-947):
 ``hit``, ``t``, ``normal``, ``request``, ``request_pos``, ``exhausted``,
@@ -22,7 +23,7 @@ import torch
 
 from ..config import GridConfig
 from ..ops.traverse import aabb_clip, trace_rays
-from . import build
+from . import build, hooked
 
 __all__ = ["trace"]
 
@@ -88,8 +89,8 @@ def trace(origins: torch.Tensor, dirs: torch.Tensor, scene, cam_brick,
     if n:
         lib = build.load("traverse", _bind)
         with torch.cuda.device(dev):
-            status = lib.traverse_launch(
-                n, clipped.data_ptr(), d.data_ptr(), entry_normal.data_ptr(),
+            status = hooked(
+                trace, lib.traverse_launch, n, clipped.data_ptr(), d.data_ptr(), entry_normal.data_ptr(),
                 tminn.data_ptr(), ok.data_ptr(),
                 scene.index_volume.data_ptr(), scene.pool_words.data_ptr(),
                 scene.pool_base.data_ptr(), grid.cells, grid.cells,
@@ -107,3 +108,4 @@ def trace(origins: torch.Tensor, dirs: torch.Tensor, scene, cam_brick,
 
 
 trace.launches = 0
+trace.events = None

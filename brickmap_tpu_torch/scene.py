@@ -27,7 +27,8 @@ from .config import BRICK_DIST_SHIFT, BRICK_FLAG_BITS, BRICK_LOADED_BIT, \
     GridConfig, i32
 
 __all__ = ["TorchScene", "generate_terrain_scene", "scene_from_dense",
-           "scene_from_numpy", "to_numpy", "save_scene", "load_scene",
+           "scene_from_numpy", "fields_from_numpy", "to_numpy", "save_scene",
+           "load_scene",
            "chebyshev_distance_field", "scene_summary"]
 
 
@@ -256,6 +257,17 @@ def scene_from_numpy(index_volume, pool_words, pool_base,
     return TorchScene(words(index_volume), words(pool_words),
                       torch.from_numpy(np.ascontiguousarray(
                           pool_base, dtype=np.int32)).to(device))
+
+
+def fields_from_numpy(occupancy, albedo, device="cuda"):
+    """The differentiable renderer's fields (occupancy [..., 512] or a dense
+    grid, albedo [..., 3]) from the JAX package's NumPy arrays, as float32
+    tensors on ``device``."""
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)) \
+            .to(device)
+
+    return f32(occupancy), f32(albedo)
 
 
 def to_numpy(scene: TorchScene):

@@ -19,7 +19,24 @@ Phases, each printing its seconds; any failure raises and exits non-zero:
    per view), with B2 held against its plain version at the main path's
    shape (view 0's primary rays) and timed there beside its bound.  Each
    wave must launch B2 at least 5 times (4 bounce traces + the final shadow
-   pass) unless the plain version finds that none of its primary rays hits.
+   pass) unless the plain version finds that none of its primary rays hits;
+6. kernels B3 (segment recorder), B4f and B4b (visited-voxel extraction and
+   its transpose) against their plain versions on the phase-4 terrain,
+   resident and streaming: random rays and the inverse benchmark's rays,
+   K = 8 and 16, with pool slots; B4f/B4b on random rows.  Every output
+   must be equal;
+7. the training path: the sparse inverse-rendering step on the phase-5
+   world, 1920x1080 = 2,073,600 rays, K = 8 (``run_sparse_inverse_
+   benchmark``: active-brick pre-pass, an uncached and a cached step, 3 Adam
+   steps).  B3, B4f and B4b must each launch, no plain version may run,
+   no ray may exhaust its budget, the loss must be finite and fall and the
+   gradients finite and not all zero.  Then one uncached step through the
+   kernels is held against one with their plain versions swapped in (loss
+   rtol 1e-5, gradients atol 1e-5), B3 against its plain version on the
+   frame's rays and B4f/B4b on the first 131,072-row slice of the step's
+   seg_cache, each timed there beside its bound and a PyTorch call; one
+   slice of the replay is split by part and profiled for the device's idle
+   share.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -85,46 +102,6 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-class LaunchTimer:
-    """CUDA events around each call of a ctypes kernel launcher: the
-    kernel's own time on the stream, without the wrapper's torch work or the
-    host gaps before it."""
-
-    def __init__(self, lib, name: str):
-        self.lib, self.name = lib, name
-        self.orig = getattr(lib, name)
-        self.events = []
-
-    def __enter__(self):
-        import torch
-
-        def timed(*args):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            status = self.orig(*args)
-            e1.record()
-            self.events.append((e0, e1))
-            return status
-        setattr(self.lib, self.name, timed)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.lib, self.name, self.orig)
-        return False
-
-    def take_ms(self) -> tuple[float, int]:
-        """Summed milliseconds and count of the launches since the last
-        call."""
-        import torch
-
-        torch.cuda.synchronize()
-        ms = sum(a.elapsed_time(b) for a, b in self.events)
-        count = len(self.events)
-        self.events.clear()
-        return ms, count
-
-
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -172,6 +149,28 @@ def check_b2(tag, got, want, max_err):
           f"{int(want['exhausted'].sum())} exhausted, max steps "
           f"{int(want['iters'])}: match (max |dt| {err:.3g})", flush=True)
     max_err[0] = max(max_err[0], err)
+
+
+def check_equal(tag: str, got: dict, want: dict) -> None:
+    """Every output of a kernel ``got`` equal to its plain version's."""
+    import torch
+
+    for k, v in got.items():
+        if not torch.equal(v, want[k]):
+            bad = (v != want[k]).reshape(v.shape[0], -1).any(1)
+            fail(f"{tag}: {k} differs on {int(bad.sum())} rows")
+
+
+def record_bound(plain: dict, k: int, slots: bool):
+    """B3's least time on these rays: per ray the inputs (clipped origin and
+    direction 24 B, hit flag 1 B) and outputs (12 B per segment, 4 more with
+    slots, count 4 B, exhausted 1 B), then each distinct index word read
+    once (4 B); DDA_STEP_OPS per step.  Returns (ms, by, bytes)."""
+    n = plain["count"].shape[0]
+    nbytes = n * (25 + (16 if slots else 12) * k + 5) \
+        + 4 * int(plain["cells_read"].sum())
+    ms, by = bound(nbytes, int(plain["ray_words"].sum()) * DDA_STEP_OPS)
+    return ms, by, nbytes
 
 
 def main() -> int:
@@ -343,7 +342,7 @@ def main() -> int:
                 both(f"{sc_tag} LoD camera {cam_far}", o_rand, d_rand, sc,
                      cam_far, budget)
             both(f"{sc_tag} tiny budget", o_rand, d_rand, sc, (0, 0, 0), 16)
-        del full, streaming, iv
+        del iv
 
     # ------------------------------------------------------------------
     with phase("5 main path: 4096^2 x 512 world, 9 views, 1920x1080, "
@@ -378,12 +377,11 @@ def main() -> int:
                           max_iters=budget)
         torch.cuda.synchronize()
         check_b2("main-path shape (view 0 primaries)", got, want, b2_err)
-        trav_lib = build.load("traverse", ktrav._bind)
-        with LaunchTimer(trav_lib, "traverse_launch") as timer:
+        with benchmark.KernelTimes(B2=ktrav.trace) as timer:
             for _ in range(5):
                 ktrav.trace(o0, d0, world, cam0.brick_position, cfg.grid,
                             budget)
-            b2_ms = timer.take_ms()[0] / 5
+            b2_ms = timer.take()["B2"][0] / 5
         t1 = time.perf_counter()
         trace_rays(o0, d0, world.index_volume, world.pool_words,
                    world.pool_base, cam0.brick_position, cfg.grid,
@@ -434,7 +432,7 @@ def main() -> int:
         def counted_wave(*a, **k):
             before = ktrav.trace.launches
             primaries.clear()
-            timer.events.clear()    # B2 launches of this wave only
+            ktrav.trace.events.clear()    # B2 launches of this wave only
             out = orig_wave(*a, **k)
             launches = ktrav.trace.launches - before
             traced = int(out[2]["traced_rays"])
@@ -468,7 +466,7 @@ def main() -> int:
         images = {}
 
         def on_wave(vi, rgb):
-            ms, calls = timer.take_ms()
+            ms, calls = timer.take()["B2"]
             images[vi] = (float(rgb.mean()), float(rgb.std()),
                           bool(torch.isfinite(rgb).all()), ms, calls)
 
@@ -485,7 +483,7 @@ def main() -> int:
         ktrav.trace.launches = 0
         kbrick.trace_single_brick.launches = 0
         cams = benchmark.benchmark_cameras()
-        with LaunchTimer(trav_lib, "traverse_launch") as timer:
+        with benchmark.KernelTimes(B2=ktrav.trace) as timer:
             out = benchmark.run_forward_benchmark(
                 world, cfg, waves_per_view=1, warmup_waves=1, verbose=False,
                 on_view=on_view, on_wave=on_wave)
@@ -527,12 +525,337 @@ def main() -> int:
             "plain_ms": b2_plain_ms, "bound_ms": b2_bound, "bound_by": b2_by,
             "library_ms": None}
 
+    # ------------------------------------------------------------------
+    from brickmap_tpu_torch.diff import sparse as dsparse
+    from brickmap_tpu_torch.kernels import extract as kext, record as krec
+    from brickmap_tpu_torch.ops.extract import extract_rows_bwd_plain, \
+        extract_rows_plain
+    from brickmap_tpu_torch.ops.record import record_segments_plain
+
+    def rand_rows(cs, nvox=22):
+        """Random field rows and a lin with -1, >= 512 and duplicates."""
+        rows = torch.randn((cs, 2048), generator=gen, device=dev)
+        lin = torch.randint(-2, 520, (cs, nvox), generator=gen, device=dev,
+                            dtype=torch.int32)
+        lin[:, 3] = lin[:, 1]
+        dv = torch.randn((cs, 4 * nvox), generator=gen, device=dev)
+        return rows, lin, dv
+
+    def check_b4(tag, rows, lin, dv):
+        got = {"vals": kext.extract_fwd(rows, lin),
+               "drows": kext.extract_bwd(lin, dv, rows.shape[1])}
+        want = {"vals": extract_rows_plain(rows, lin),
+                "drows": extract_rows_bwd_plain(lin, dv, rows.shape[1])}
+        torch.cuda.synchronize()
+        check_equal(f"B4 {tag}", got, want)
+        print(f"  B4f/B4b {tag}: {rows.shape[0]} rows x {lin.shape[1]} "
+              f"voxels, {int(((lin >= 0) & (lin < 512)).sum())} valid: "
+              f"equal", flush=True)
+        return tuple(float((got[k] - want[k]).abs().max())
+                     for k in ("vals", "drows"))
+
+    with phase("6 kernels B3, B4f, B4b vs plain (512^2 x 128 terrain)"):
+        grid6 = GridConfig(grid_size=512, grid_height=128)
+        inv_rays = benchmark.sparse_inverse_rays(1 << 18, grid6, dev)[:2]
+        for sc_tag, sc in (("resident", full), ("streaming", streaming)):
+            for ray_tag, (o, d) in (("random rays", (o_rand, d_rand)),
+                                    ("inverse rays", inv_rays)):
+                for k in (8, 16):
+                    got = krec.record_segments(o, d, sc, grid6, k_segments=k,
+                                               with_slots=True)
+                    want = record_segments_plain(o, d, sc, grid6,
+                                                 k_segments=k,
+                                                 with_slots=True)
+                    torch.cuda.synchronize()
+                    check_equal(f"B3 {sc_tag} {ray_tag} K={k}", got, want)
+                    c = want["count"]
+                    print(f"  B3 {sc_tag} {ray_tag} K={k}: {c.shape[0]} "
+                          f"rays, {int((c > 0).sum())} with segments, "
+                          f"{int((c == k).sum())} full, "
+                          f"{int((want['slot'] == -1).sum())} slots -1, "
+                          f"{int(want['exhausted'].sum())} exhausted: equal",
+                          flush=True)
+        for cs in (131072, 8191):
+            check_b4(f"random rows ({cs})", *rand_rows(cs))
+        check_b4("random rows, 7 voxels", *rand_rows(1000, 7))
+        del full, streaming, o_rand, d_rand, inv_rays
+
+    # ------------------------------------------------------------------
+    with phase("7 training path: sparse inverse step, 4096^2 x 512 world, "
+               "1920x1080 rays, K = 8"):
+        K = benchmark.SPARSE_K
+        nvox = 3 * cfg.grid.brick_size - 2
+        plain_calls = {"B3": 0, "B4f": 0, "B4b": 0}
+        saved = [counting(krec, "record_segments_plain", "B3"),
+                 counting(kext, "extract_rows_plain", "B4f"),
+                 counting(kext, "extract_rows_bwd_plain", "B4b")]
+        krec.record_segments.launches = 0
+        kext.extract_fwd.launches = 0
+        kext.extract_bwd.launches = 0
+        out7 = benchmark.run_sparse_inverse_benchmark(world, cfg.grid)
+        launches = {"B3": krec.record_segments.launches,
+                    "B4f": kext.extract_fwd.launches,
+                    "B4b": kext.extract_bwd.launches}
+        krec.record_segments_plain, kext.extract_rows_plain, \
+            kext.extract_rows_bwd_plain = saved
+        frame = out7.pop("frame")
+        print(f"  active bricks A = {out7['active_bricks']} (the JAX "
+              f"package's record of these rays: 138541), rays with "
+              f"segments {out7['live_rays']} of {out7['rays']}, mean count "
+              f"{out7['mean_count']:.4f}, exhausted {out7['exhausted']}")
+        print(f"  prepass {out7['prepass_s']:.3f} s, uncached step "
+              f"{out7['uncached_step_s']:.3f} s ({out7['mrays_per_s']:.4f} "
+              f"Mrays/s), cached step {out7['cached_step_s']:.3f} s "
+              f"({out7['cached_mrays_per_s']:.4f} Mrays/s), Adam steps "
+              f"{out7['adam_step_s']} s, losses {out7['losses']}, peak "
+              f"allocated {out7['peak_bytes']} bytes on {out7['device']}")
+        print(f"  Adam update alone {out7['adam_update_s']} s")
+        for st, per in out7["kernels"].items():
+            print(f"  stage {st}: " + ", ".join(
+                f"{k} {ms:.3f} ms in {c} launches" for k, (ms, c) in
+                per.items()), flush=True)
+        print(f"  launches in the run: {launches}; plain calls "
+              f"{plain_calls}")
+        if any(v < 1 for v in launches.values()):
+            fail(f"a kernel of the training path did not launch: {launches}")
+        if any(plain_calls.values()):
+            fail(f"plain versions ran on the training path: {plain_calls}")
+        if out7["exhausted"]:
+            fail(f"{out7['exhausted']} rays exhausted the record budget")
+        losses = out7["losses"]
+        if not (all(math.isfinite(v) for v in losses)
+                and math.isfinite(out7["loss"]) and losses[-1] < losses[0]):
+            fail(f"loss not finite and falling: {losses}")
+        if not (out7["grads_finite"] and out7["grads_nonzero"]):
+            fail("gradients not finite, or all zero")
+
+        # The whole step against the plain versions on the same inputs (the
+        # fields after the Adam steps): one uncached step through B3, B4f
+        # and B4b, one with their plain versions swapped in.  The field
+        # gradient's index_add_ sums in a run-dependent order on the card.
+        o7, d7 = frame["origins"], frame["dirs"]
+        kernel_fns = (dsparse.record_segments, kext.extract_fwd,
+                      kext.extract_bwd)
+
+        def full_step():
+            before = [f.launches for f in kernel_fns]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss, grads = dsparse.l2_loss_and_grads_sparse(
+                o7, d7, world, frame["cellmap"], frame["occupancy"],
+                frame["albedo"], frame["background"], frame["target"],
+                cfg.grid, k_segments=K)
+            torch.cuda.synchronize()
+            return (float(loss), grads, time.perf_counter() - t1,
+                    [f.launches - b for f, b in zip(kernel_fns, before)])
+
+        loss_k, (go_k, ga_k), step_k_s, n_k = full_step()
+        dsparse.record_segments = record_segments_plain
+        kext.extract_fwd = extract_rows_plain
+        kext.extract_bwd = extract_rows_bwd_plain
+        try:
+            loss_p, (go_p, ga_p), step_p_s, n_p = full_step()
+        finally:
+            dsparse.record_segments, kext.extract_fwd, kext.extract_bwd = \
+                kernel_fns
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        grad_err = max(float((go_k - go_p).abs().max()),
+                       float((ga_k - ga_p).abs().max()))
+        print(f"  whole uncached step, kernels {step_k_s:.3f} s (launches "
+              f"B3/B4f/B4b {n_k}) against the plain versions "
+              f"{step_p_s:.3f} s (launches {n_p}): loss {loss_k!r} vs "
+              f"{loss_p!r} (rel {loss_rel:.3g}), max |dgrad| {grad_err:.3g}",
+              flush=True)
+        del go_k, ga_k, go_p, ga_p
+        if min(n_k) < 1 or any(n_p):
+            fail(f"kernel launches {n_k} in the kernel step, {n_p} in the "
+                 f"plain one")
+        if not (loss_rel <= 1e-5 and grad_err <= 1e-5):
+            fail(f"the step's loss (rel {loss_rel}) or gradients "
+                 f"({grad_err}) differ from the plain versions'")
+
+        # B3 against its plain version on the frame's rays, timed there.
+        got = krec.record_segments(o7, d7, world, cfg.grid, k_segments=K)
+        t1 = time.perf_counter()
+        want = record_segments_plain(o7, d7, world, cfg.grid, k_segments=K)
+        torch.cuda.synchronize()
+        b3_plain_ms = (time.perf_counter() - t1) * 1e3
+        check_equal("B3 frame rays", got, want)
+        b3_err = float((got["nd"] - want["nd"]).abs().max())
+        with benchmark.KernelTimes(B3=krec.record_segments) as timer:
+            for _ in range(5):
+                krec.record_segments(o7, d7, world, cfg.grid, k_segments=K)
+            b3_ms = timer.take()["B3"][0] / 5
+        b3_bound, b3_by, b3_bytes = record_bound(want, K, False)
+        print(f"  B3 at {o7.shape[0]} rays: {b3_ms:.4f} ms per launch (plain "
+              f"{b3_plain_ms:.1f} ms); {int(want['cells_read'].sum())} "
+              f"distinct index words, {int(want['ray_words'].sum())} steps "
+              f"-> {b3_bytes} bytes, bound {b3_bound:.4f} ms by {b3_by}; "
+              f"outputs equal", flush=True)
+        del got, want
+
+        # B4f/B4b on the first 131,072-row slice of the replay: the first
+        # 16,384 count-sorted live rays of the timed steps' seg_cache.
+        c7 = 16384
+        sl_in = tuple(a[:c7] for a in frame["seg_cache"]["geo"])
+        cellmap_a = frame["cellmap"]
+        field2 = dsparse._pack_field2(frame["occupancy"], frame["albedo"])
+        del frame, o7, d7
+        slots, lin, mask = dsparse._segment_geom(*sl_in[:6], cellmap_a,
+                                                 cfg.grid, K)
+        flat = slots.reshape(-1)
+        rows2 = field2.index_select(0, flat)
+        lin2 = torch.where(mask, lin, -1).reshape(c7 * K, nvox)
+        del lin, mask
+        cs = rows2.shape[0]
+        dv = torch.randn((cs, 4 * nvox), generator=gen, device=dev)
+        b4f_err, b4b_err = check_b4(f"replay slice ({cs} rows)", rows2,
+                                    lin2, dv)
+        with benchmark.KernelTimes(B4f=kext.extract_fwd,
+                                   B4b=kext.extract_bwd) as timer:
+            for _ in range(10):
+                kext.extract_fwd(rows2, lin2)
+                kext.extract_bwd(lin2, dv, rows2.shape[1])
+            b4 = timer.take()
+        b4f_ms, b4b_ms = b4["B4f"][0] / 10, b4["B4b"][0] / 10
+        b4f_plain_ms = cuda_ms(lambda: extract_rows_plain(rows2, lin2), 3)
+        b4b_plain_ms = cuda_ms(lambda: extract_rows_bwd_plain(
+            lin2, dv, rows2.shape[1]), 3)
+        valid = (lin2 >= 0) & (lin2 < 512)
+        n_valid = int(valid.sum())
+        cols = (torch.arange(4, device=dev, dtype=torch.int64)[None, :, None]
+                * 512 + torch.clamp(lin2, 0, 511).long()[:, None, :]
+                ).reshape(cs, 4 * nvox)
+        dv_valid = dv * valid.repeat(1, 4)
+        b4f_lib_ms = cuda_ms(lambda: torch.gather(rows2, 1, cols), 10)
+        b4b_lib_ms = cuda_ms(lambda: torch.zeros(
+            (cs, rows2.shape[1]), device=dev).scatter_add_(1, cols,
+                                                            dv_valid), 10)
+        # B4f: lin (4 B per voxel), the 4 values of each valid voxel read,
+        # all 4*nvox values written.  B4b: lin, the cotangents, the whole
+        # 4*512-float row written.
+        b4f_bound, b4f_by = bound(cs * nvox * 4 + n_valid * 16
+                                  + cs * 4 * nvox * 4, cs * nvox * 4)
+        b4b_bound, b4b_by = bound(cs * nvox * 4 + cs * 4 * nvox * 4
+                                  + cs * rows2.shape[1] * 4,
+                                  cs * 512 * nvox + n_valid * 4)
+        print(f"  B4f at {cs} rows ({n_valid} valid voxels): {b4f_ms:.4f} ms"
+              f" per launch (plain {b4f_plain_ms:.3f} ms, torch.gather "
+              f"{b4f_lib_ms:.4f} ms, bound {b4f_bound:.4f} ms by {b4f_by})")
+        print(f"  B4b at {cs} rows: {b4b_ms:.4f} ms per launch (plain "
+              f"{b4b_plain_ms:.3f} ms, zeros + scatter_add_ "
+              f"{b4b_lib_ms:.4f} ms, bound {b4b_bound:.4f} ms by {b4b_by})",
+              flush=True)
+        del rows2, lin2, dv, cols, dv_valid
+
+        # Where one slice's time goes: host clock around synchronised work
+        # (the replay is eager torch: its launches set the pace).  The
+        # device's busy and idle shares come from one profiled call of the
+        # slice alone: the union of its device activities against the host
+        # time of that same call, and against the span from its first
+        # device activity to its last.
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        def host_ms(fn, reps=3):
+            fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t1) * 1e3 / reps
+
+        dfield = torch.zeros_like(field2)
+        sse0 = torch.zeros((), device=dev)
+        grad_rows = torch.randn((cs, field2.shape[1]), generator=gen,
+                                device=dev)
+        v7 = K * nvox
+        occ_v = torch.rand((c7, v7), generator=gen, device=dev)
+        s_v = torch.rand((c7, v7), generator=gen, device=dev)
+
+        def one_slice():
+            dsparse._row_chunk_grad(*sl_in[:6], cellmap_a, sse0, dfield,
+                                    field2, sl_in[6], sl_in[7], cfg.grid, K)
+
+        parts = {
+            "geometry": host_ms(lambda: dsparse._segment_geom(
+                *sl_in[:6], cellmap_a, cfg.grid, K)),
+            "gather": host_ms(lambda: field2.index_select(0, flat)),
+            "index_add_": host_ms(lambda: dfield.index_add_(0, flat,
+                                                            grad_rows)),
+            "suffix loop": host_ms(lambda: dsparse._suffix(
+                occ_v, s_v, s_v[:, 0])),
+            "whole slice": host_ms(one_slice),
+        }
+        print("  one 16,384-ray slice at K = 8 (host ms, 3 calls each): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            one_slice()
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t1) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if not spans:
+            fail("the profiler saw no device activity in the slice")
+        busy_us, end = 0.0, spans[0][0]
+        for a, b in spans:
+            if b > end:
+                busy_us += b - max(a, end)
+                end = b
+        busy_ms, span_ms = busy_us / 1e3, (end - spans[0][0]) / 1e3
+        print(f"  one profiled call of the slice: {traced_ms:.3f} ms host, "
+              f"{len(spans)} device activities over {span_ms:.3f} ms from "
+              f"first to last, {busy_ms:.3f} ms busy -> device idle "
+              f"{1 - busy_ms / traced_ms:.3f} of the call, "
+              f"{1 - busy_ms / span_ms:.3f} of its device span; top by "
+              f"device time:")
+        evs = prof.key_averages()
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+
+        for e in sorted(evs, key=dev_us, reverse=True)[:8]:
+            print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
+                  f"{e.key[:90]}")
+        del dfield, grad_rows, occ_v, s_v, field2, cellmap_a, sl_in, flat
+        del slots
+
+        records["B3"] = {
+            "name": "record (B3)", "route": "cuda",
+            "source": "brickmap_tpu_torch/csrc/record.cu",
+            "replaces": "brickmap_tpu/pallas/record.py:42",
+            "launches": launches["B3"], "max_abs_err": b3_err, "ms": b3_ms,
+            "plain_ms": b3_plain_ms, "bound_ms": b3_bound, "bound_by": b3_by,
+            "library_ms": None}
+        records["B4f"] = {
+            "name": "extract forward (B4f)", "route": "cuda",
+            "source": "brickmap_tpu_torch/csrc/extract.cu",
+            "replaces": "brickmap_tpu/pallas/extract.py:35",
+            "launches": launches["B4f"], "max_abs_err": b4f_err,
+            "ms": b4f_ms,
+            "plain_ms": b4f_plain_ms, "bound_ms": b4f_bound,
+            "bound_by": b4f_by, "library_ms": b4f_lib_ms}
+        records["B4b"] = {
+            "name": "extract backward (B4b)", "route": "cuda",
+            "source": "brickmap_tpu_torch/csrc/extract.cu",
+            "replaces": "brickmap_tpu/pallas/extract.py:55",
+            "launches": launches["B4b"], "max_abs_err": b4b_err,
+            "ms": b4b_ms,
+            "plain_ms": b4b_plain_ms, "bound_ms": b4b_bound,
+            "bound_by": b4b_by, "library_ms": b4b_lib_ms}
+
     for r in records.values():
         for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(r[k]):
                 fail(f"{r['name']}: {k} is not finite")
     print(smi_line())
-    print(json.dumps({"kernels": [records["B1"], records["B2"]]}))
+    print(json.dumps({"kernels": [records[k] for k in
+                                  ("B1", "B2", "B3", "B4f", "B4b")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
