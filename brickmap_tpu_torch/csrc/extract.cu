@@ -1,110 +1,130 @@
-// Kernels B4f and B4b: visited-voxel extraction for the brick-row replay of
-// the sparse differentiable renderer, and its transpose.
+// Kernels B4f and B4b: the brick-row replay's reads of the visited voxels
+// straight from the pool fields, and the atomic scatter-add of their
+// cotangents back into the field gradient.
 //
 // Replace the TPU kernels brickmap_tpu/pallas/extract.py::_fwd_kernel (:35)
-// and ::_bwd_kernel (:55), paired by extract_rows_pallas (:79).  A field row
-// is 4*nv floats wide (column f*nv + v: occupancy, then RGB albedo, of brick
-// voxel v); lin [Cs, nvox] names the voxels a segment visits.
+// and ::_bwd_kernel (:55), paired by extract_rows_pallas (:79), together
+// with the row gather before the first (jnp.take of one [4*512] row per
+// segment, brickmap_tpu/diff/sparse.py:512) and the row scatter-add after
+// the second (.at[slots].add, :531).  The TPU needed whole 8 KB rows to fill
+// its VMEM tiles; here a segment touches only the ~8 voxels it visits.
 //
-// B4f (extract_fwd_kernel): vals[r, f*nvox + j] = rows[r, f*nv + lin[r, j]],
-// or 0 where lin[r, j] lies outside [0, nv).  The TPU kernel streamed whole
-// 2048-float rows through VMEM and ran one compare-select reduction per
-// visited voxel; here one thread per (row, j) reads the 4 values lin names
-// and nothing else of the row.  Bound: bytes, 4*nvox + 3*4*nvox*4 per row
-// (lin, the values read, the values written).
+// The fields are voxel-interleaved, field4 [P*512, 4] f32 (occupancy, then
+// RGB albedo): a voxel's four values are one 16-byte aligned float4.
+// slots [Cs] i32 names each segment's pool row, lin [Cs, nvox] i32 the brick
+// voxels it visits; entry (r, j) is valid when 0 <= lin[r, j] < 512 and
+// 0 <= slots[r] < P.
 //
-// B4b (extract_bwd_kernel): drows[r, f*nv + v] = sum over j with lin[r, j] == v
-// of dvals[r, f*nvox + j], in ascending j, and 0 for voxels no j names.  One
-// block per row: lin and dvals go to shared memory, each thread owns voxels
-// v = tid, tid + blockDim, ... and sums its matches in registers, so every
-// float of the row is written once, without atomics, in the plain version's
-// order (bit-equal to it).  Bound: bytes, dominated by writing the whole
-// 4*nv-float row.
+// B4f (extract_fwd_kernel): vals[r, f*nvox + j] = field4[slots[r]*512 +
+// lin[r, j], f], 0 for invalid entries.  One thread per (r, j), coalesced
+// over j; one read-only 16-byte load per valid voxel, one 32-byte sector
+// where the row layout (values 2 KB apart) took four.  Bound: bytes,
+// 4 Cs (slots) + 4 Cs nvox (lin) + 16 n_valid (values) + 16 Cs nvox (vals).
+//
+// B4b (extract_bwd_kernel): dfield4[slots[r]*512 + lin[r, j]] +=
+// (dvals[r, f*nvox + j])_f for every valid (r, j), in place.  One thread per
+// (r, j) and one vector atomic per valid voxel, atomicAdd(float4*, float4):
+// global memory only, compute capability 9.x, declared in the CUDA
+// toolkit's crt/sm_90_rt.h (12.9 builds it).  The read-modify-writes
+// resolve in the 50 MB L2; no zeroed row is written and no separate
+// index_add_ reads one back.  The sum order is
+// the atomics', not ascending j, so results match the plain version up to
+// the rounding of the order.  Bound: bytes, 4 Cs + 4 Cs nvox + 16 Cs nvox
+// (dvals) + 32 n_valid (read-modify-write).
+//
+// Neither kernel has a matrix product or a regular tile: tensor cores,
+// wgmma and TMA do not apply to these irregular 16-byte accesses.
 //
 // Built by brickmap_tpu_torch/kernels/build.py (nvcc, sm_90a, -fmad=false);
-// bound with ctypes by brickmap_tpu_torch/kernels/extract.py.
+// bound with ctypes by brickmap_tpu_torch/kernels/extract.py, which checks
+// shapes, types, contiguity and alignment and keeps Cs * nvox < 2^31.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kFwdThreads = 256;
-constexpr int kBwdThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kBrickVoxels = 512;
 
-__global__ void __launch_bounds__(kFwdThreads)
-extract_fwd_kernel(int cs, int nv, int nvox, const float* __restrict__ rows,
-                   const int* __restrict__ lin, float* __restrict__ vals) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (e >= static_cast<long long>(cs) * nvox) return;
-  const long long r = e / nvox;
-  const int j = static_cast<int>(e - r * nvox);
-  const int l = lin[e];
-  const bool valid = l >= 0 && l < nv;
-  const float* row = rows + r * 4 * nv;
-  float* out = vals + r * 4 * nvox + j;
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    out[f * nvox] = valid ? row[f * nv + l] : 0.0f;
-  }
+// This thread's entry e = r * nvox + j, or -1 past the last one.  The
+// index is formed in 64 bits: in the last block of a launch near 2^31
+// entries a 32-bit one would wrap to a negative number below `total`.
+__device__ __forceinline__ int entry(int total) {
+  const long long e =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  return e < total ? static_cast<int>(e) : -1;
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
-extract_bwd_kernel(int nv, int nvox, const int* __restrict__ lin,
-                   const float* __restrict__ dvals,
-                   float* __restrict__ drows) {
-  extern __shared__ int smem[];
-  int* s_lin = smem;                                     // [nvox]
-  float* s_dv = reinterpret_cast<float*>(smem + nvox);   // [4 * nvox]
-  const long long r = blockIdx.x;
-  for (int t = threadIdx.x; t < nvox; t += blockDim.x) {
-    s_lin[t] = lin[r * nvox + t];
-  }
-  for (int t = threadIdx.x; t < 4 * nvox; t += blockDim.x) {
-    s_dv[t] = dvals[r * 4 * nvox + t];
-  }
-  __syncthreads();
-  float* out = drows + r * 4 * nv;
-  for (int v = threadIdx.x; v < nv; v += blockDim.x) {
-    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;
-    for (int j = 0; j < nvox; ++j) {
-      if (s_lin[j] == v) {
-        acc0 = acc0 + s_dv[j];
-        acc1 = acc1 + s_dv[nvox + j];
-        acc2 = acc2 + s_dv[2 * nvox + j];
-        acc3 = acc3 + s_dv[3 * nvox + j];
-      }
-    }
-    out[v] = acc0;
-    out[nv + v] = acc1;
-    out[2 * nv + v] = acc2;
-    out[3 * nv + v] = acc3;
-  }
+// The field row of entry e, or -1 where it is invalid.
+__device__ __forceinline__ long long voxel_of(int e, int r, int pool,
+                                              const int* __restrict__ slots,
+                                              const int* __restrict__ lin) {
+  const int l = __ldg(lin + e);
+  const int s = __ldg(slots + r);
+  if (l < 0 || l >= kBrickVoxels || s < 0 || s >= pool) return -1;
+  return static_cast<long long>(s) * kBrickVoxels + l;
+}
+
+__global__ void __launch_bounds__(kThreads)
+extract_fwd_kernel(int total, int nvox, int pool,
+                   const float4* __restrict__ field4,
+                   const int* __restrict__ slots, const int* __restrict__ lin,
+                   float* __restrict__ vals) {
+  const int e = entry(total);
+  if (e < 0) return;
+  const int r = e / nvox;
+  const int j = e - r * nvox;
+  const long long v = voxel_of(e, r, pool, slots, lin);
+  const float4 x = v >= 0 ? __ldg(field4 + v) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float* out = vals + static_cast<long long>(r) * 4 * nvox + j;
+  out[0] = x.x;
+  out[nvox] = x.y;
+  out[2 * nvox] = x.z;
+  out[3 * nvox] = x.w;
+}
+
+__global__ void __launch_bounds__(kThreads)
+extract_bwd_kernel(int total, int nvox, int pool, float4* __restrict__ dfield4,
+                   const int* __restrict__ slots, const int* __restrict__ lin,
+                   const float* __restrict__ dvals) {
+  const int e = entry(total);
+  if (e < 0) return;
+  const int r = e / nvox;
+  const int j = e - r * nvox;
+  const long long v = voxel_of(e, r, pool, slots, lin);
+  if (v < 0) return;
+  const float* d = dvals + static_cast<long long>(r) * 4 * nvox + j;
+  atomicAdd(dfield4 + v, make_float4(d[0], d[nvox], d[2 * nvox], d[3 * nvox]));
+}
+
+int blocks_for(int total) {
+  return static_cast<int>((static_cast<long long>(total) + kThreads - 1) /
+                          kThreads);
 }
 
 }  // namespace
 
-extern "C" int extract_fwd_launch(int cs, int nv, int nvox, const float* rows,
+extern "C" int extract_fwd_launch(int cs, int nvox, int pool,
+                                  const void* field4, const int* slots,
                                   const int* lin, float* vals, void* stream) {
-  const long long total = static_cast<long long>(cs) * nvox;
+  const int total = cs * nvox;
   if (total > 0) {
-    const int blocks =
-        static_cast<int>((total + kFwdThreads - 1) / kFwdThreads);
-    extract_fwd_kernel<<<blocks, kFwdThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(cs, nv, nvox,
-                                                              rows, lin, vals);
+    extract_fwd_kernel<<<blocks_for(total), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        total, nvox, pool, static_cast<const float4*>(field4), slots, lin,
+        vals);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int extract_bwd_launch(int cs, int nv, int nvox, const int* lin,
-                                  const float* dvals, float* drows,
-                                  void* stream) {
-  if (cs > 0) {
-    const size_t shared = static_cast<size_t>(5 * nvox) * sizeof(int);
-    extract_bwd_kernel<<<cs, kBwdThreads, shared,
-                         static_cast<cudaStream_t>(stream)>>>(nv, nvox, lin,
-                                                              dvals, drows);
+extern "C" int extract_bwd_launch(int cs, int nvox, int pool, void* dfield4,
+                                  const int* slots, const int* lin,
+                                  const float* dvals, void* stream) {
+  const int total = cs * nvox;
+  if (total > 0) {
+    extract_bwd_kernel<<<blocks_for(total), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        total, nvox, pool, static_cast<float4*>(dfield4), slots, lin, dvals);
   }
   return static_cast<int>(cudaGetLastError());
 }

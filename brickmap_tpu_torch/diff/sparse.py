@@ -14,13 +14,15 @@ The port of ``brickmap_tpu/diff/sparse.py``.  Two phases:
    has an analytic, division-free backward (:class:`_CompositeCore`).
 
 The loss path (:func:`l2_loss_and_grads_sparse`) replays at brick-row
-granularity: each (ray, segment) gathers one ``[4*512]`` field row, kernel
-B4f extracts the visited voxels and kernel B4b scatters their cotangents back
-into a row, which one ``index_add_`` adds to the field gradient.  Rays run in
-slices of at most 16,384, so one slice's rows and their gradient (about
-1.07 GB each at K = 8) are the largest buffers; the whole frame's rows are
-never materialised.  The voxel-granular replay (``row_replay=False``) is the
-oracle the row replay is held against.
+granularity over the voxel-interleaved fields ``field4 [P*512, 4]``: per
+(ray, segment), kernel B4f reads the visited voxels' four values straight
+from the segment's pool row (one 16-byte load each), and kernel B4b adds
+their cotangents into the field gradient in place (one 16-byte atomic
+each).  No ``[4*512]`` row per segment is gathered, and no row gradient is
+written or index-added.  Rays run in slices of at most 16,384; a slice's
+largest buffers are its segment geometry and the ``[C*K, 4*nvox]`` values
+and their gradient (46 MB each at K = 8).  The voxel-granular replay
+(``row_replay=False``) is the oracle the row replay is held against.
 
 Left out of the JAX module: the ``traced`` branches and ``_scan_grad_acc``
 (they serve ``jit`` and ``shard_map``) and the bucket rounding of the live
@@ -35,9 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import bits
 from ..config import BRICK_INDEX_BITS, BRICK_LOADED_BIT, GridConfig, i32
-from ..kernels.extract import extract_rows
+from ..kernels.extract import extract_bwd, extract_field, extract_fwd
 from ..kernels.record import record_segments
-from ..ops.extract import extract_rows_plain
 
 __all__ = ["cell_pool_map", "pool_fields_from_bitmask", "composite_sparse",
            "l2_loss_and_grads_sparse"]
@@ -288,43 +289,32 @@ def _composite_raw(occ_raw, alb_v, mask, bg):
     return _composite_core(occ_v, alb_v, bg)
 
 
-def _extract_rows(rows, lin):
-    """Plain twin of B4 in the JAX layout: rows [C, K, 4*512] (columns
-    f*512 + v), lin [C, K, nvox] -> vals [C, K, nvox, 4]."""
-    c, k, w = rows.shape
-    nvox = lin.shape[2]
-    vals = extract_rows_plain(rows.reshape(c * k, w),
-                              lin.reshape(c * k, nvox))
-    return vals.reshape(c, k, 4, nvox).permute(0, 1, 3, 2)
-
-
 def composite_sparse(o_cells, direction, segs, cellmap, occupancy, albedo,
                      background, grid: GridConfig, k_segments: int = 16,
                      rays_per_chunk: int = 32768, row_replay: bool = True):
     """Alpha-composite recorded segments. Returns (rgb [N,3], trans [N]).
 
     Differentiable in (occupancy [P,512], albedo [P,512,3]).
-    ``row_replay=True`` gathers ONE [4*512] field row per (ray, segment) and
-    extracts the visited voxels with kernel B4f; ``row_replay=False`` gathers
-    per visited voxel (the parity oracle).  Rays run in chunks; under
-    autograd each chunk is checkpointed, so the backward holds one chunk.
+    ``row_replay=True`` reads each (ray, segment)'s visited voxels from its
+    pool row with kernel B4f (backward: kernel B4b into a zero field
+    gradient); ``row_replay=False`` gathers per visited voxel (the parity
+    oracle).  Rays run in chunks; under autograd each chunk is
+    checkpointed, so the backward holds one chunk.
     """
     n = o_cells.shape[0]
     k = k_segments
     pvox = occupancy.shape[0] * occupancy.shape[1]
     nvox = 3 * grid.brick_size - 2
     if row_replay:
-        # The [C*K, 4*512] row intermediate bounds the chunk size.
-        rays_per_chunk = min(rays_per_chunk, 4096)
-        field2 = _pack_field2(occupancy, albedo)
+        field4 = _pack_field(occupancy, albedo)
 
     def run_chunk(oc, dc, cells, nds, ncodes, enorm, bg):
         c = oc.shape[0]
         if row_replay:
             slots, lin, mask = _segment_geom(oc, dc, cells, nds, ncodes,
                                              enorm, cellmap, grid, k)
-            rows = field2[slots.reshape(-1)]               # [C*K, 4*512]
-            vals = extract_rows(rows, lin.reshape(c * k, nvox))
+            vals = extract_field(field4, slots.reshape(-1),
+                                 lin.reshape(c * k, nvox))   # [C*K, 4*nvox]
             occ_raw = vals[:, :nvox].reshape(c, k * nvox)
             alb_v = torch.stack([vals[:, (1 + ch) * nvox:(2 + ch) * nvox]
                                  .reshape(c, k * nvox) for ch in range(3)],
@@ -375,26 +365,25 @@ def _chunk_grad_body(o_cells, direction, cells, nd, ncode, enorm, cellmap,
 
 
 def _row_chunk_grad(o_cells, direction, cells, nd, ncode, enorm, cellmap,
-                    sse_acc, dfield_acc, field2, background, target,
+                    sse_acc, dfield_acc, field4, background, target,
                     grid: GridConfig, k_segments: int):
     """One slice's SSE + gradients at brick-row granularity.
 
-    ``field2`` is [P, 4*512] (columns f*512 + v), ``dfield_acc`` matches.
-    The gathered rows take the gradient; one [4*512] cotangent row per
-    segment is index-added into ``dfield_acc`` (in place).  B4f extracts,
-    B4b scatters back (:func:`~brickmap_tpu_torch.kernels.extract.
-    extract_rows`)."""
+    ``field4`` is [P*512, 4] (voxel-interleaved), ``dfield_acc`` matches.
+    B4f reads the visited voxels' values (:func:`~brickmap_tpu_torch.
+    kernels.extract.extract_fwd`), which take the gradient; B4b adds it
+    into ``dfield_acc`` in place (:func:`~brickmap_tpu_torch.kernels.
+    extract.extract_bwd`)."""
     c = o_cells.shape[0]
     k = k_segments
     nvox = 3 * grid.brick_size - 2
     slots, lin, mask = _segment_geom(o_cells, direction, cells, nd, ncode,
                                      enorm, cellmap, grid, k_segments)
     slots = slots.reshape(-1)
-    rows2 = field2.index_select(0, slots).requires_grad_()  # [C*K, 4*512]
     # Invalid steps must extract 0 (not voxel 0's value): poison their lin.
     lin2 = torch.where(mask, lin, -1).reshape(c * k, nvox)
+    vals = extract_fwd(field4, slots, lin2).requires_grad_()  # [C*K, 4*nvox]
     with torch.enable_grad():
-        vals = extract_rows(rows2, lin2)                     # [C*K, 4*nvox]
         occ = vals[:, :nvox].reshape(c, k * nvox)
         alb = [vals[:, (1 + ch) * nvox:(2 + ch) * nvox].reshape(c, k * nvox)
                for ch in range(3)]
@@ -402,12 +391,12 @@ def _row_chunk_grad(o_cells, direction, cells, nd, ncode, enorm, cellmap,
         rgb, _ = _composite_core3(occ_v, *alb, background)
         sse = torch.sum((rgb - target) ** 2)
         sse.backward()
-    dfield_acc.index_add_(0, slots, rows2.grad)
+    extract_bwd(dfield_acc, slots, lin2, vals.grad)
     return sse_acc + sse.detach(), dfield_acc
 
 
 def _row_scan_grads(o_cells, direction, cells, nd, ncode, enorm, cellmap,
-                    field2, background, target, grid: GridConfig,
+                    field4, background, target, grid: GridConfig,
                     k_segments: int, chunk: int):
     """Whole-frame row-granular gradients: a loop over ``chunk``-ray slices
     carrying (sse, dfield) accumulators.
@@ -421,8 +410,8 @@ def _row_scan_grads(o_cells, direction, cells, nd, ncode, enorm, cellmap,
     counts = (cells >= 0).sum(dim=1)
     per_slice = F.pad(counts, (0, (-n) % chunk)).reshape(-1, chunk)
     maxima = per_slice.amax(dim=1).tolist()
-    sse = torch.zeros((), dtype=_F32, device=field2.device)
-    dfield = torch.zeros_like(field2)
+    sse = torch.zeros((), dtype=_F32, device=field4.device)
+    dfield = torch.zeros_like(field4)
     for i, mx in enumerate(maxima):
         sl = slice(i * chunk, (i + 1) * chunk)
         tier = sum(mx > t for t in thresholds)
@@ -432,7 +421,7 @@ def _row_scan_grads(o_cells, direction, cells, nd, ncode, enorm, cellmap,
         keff = keffs[tier - 1]
         sse, dfield = _row_chunk_grad(
             o_cells[sl], direction[sl], cells[sl, :keff], nd[sl, :keff],
-            ncode[sl, :keff], enorm[sl], cellmap, sse, dfield, field2,
+            ncode[sl, :keff], enorm[sl], cellmap, sse, dfield, field4,
             background[sl], target[sl], grid, keff)
     return sse, dfield
 
@@ -471,14 +460,9 @@ def _sky_sse(bg, tgt, n_run: int):
 
 
 def _pack_field(occupancy, albedo):
-    """(occ [P,512], alb [P,512,3]) -> one [P*512, 4] gather row."""
+    """(occ [P,512], alb [P,512,3]) -> the voxel-interleaved [P*512, 4]
+    (one 16-byte row per voxel: occupancy, r, g, b)."""
     return torch.cat([occupancy.reshape(-1, 1), albedo.reshape(-1, 3)], dim=1)
-
-
-def _pack_field2(occupancy, albedo):
-    """(occ [P,512], alb [P,512,3]) -> [P, 4*512] (columns f*512 + v)."""
-    return torch.cat([occupancy] + [albedo[:, :, c] for c in range(3)],
-                     dim=1)
 
 
 def _inv(denom: int, like):
@@ -489,15 +473,6 @@ def _finalize(sse, dfield, denom: int, pshape):
     inv = _inv(denom, sse)
     docc = (dfield[:, 0] * inv).reshape(pshape)
     dalb = (dfield[:, 1:] * inv).reshape(*pshape, 3)
-    return sse * inv, (docc, dalb)
-
-
-def _finalize2(sse, dfield2, denom: int, pshape):
-    inv = _inv(denom, sse)
-    nv = dfield2.shape[1] // 4
-    docc = (dfield2[:, :nv] * inv).reshape(pshape)
-    dalb = torch.stack([dfield2[:, (1 + c) * nv:(2 + c) * nv] * inv
-                        for c in range(3)], dim=-1).reshape(*pshape, 3)
     return sse * inv, (docc, dalb)
 
 
@@ -539,8 +514,8 @@ def l2_loss_and_grads_sparse(origin, direction, scene, cellmap, occupancy,
         segs = record_segments(origin, direction, scene, grid,
                                k_segments=k_segments)
 
+    field = _pack_field(occupancy, albedo)
     if row_replay:
-        field2 = _pack_field2(occupancy, albedo)
         if use_cache:
             geo, n_live = seg_cache["geo"], seg_cache["n_live"]
         else:
@@ -557,18 +532,17 @@ def l2_loss_and_grads_sparse(origin, direction, scene, cellmap, occupancy,
             seg_cache["key_arrays"] = key_arrays
         if n_live == 0:
             # All-miss frame: the sky SSE covers every ray.
-            return _finalize2(_sky_sse(geo[6], geo[7], 0),
-                              torch.zeros_like(field2), denom=n * 3,
-                              pshape=pshape)
+            return _finalize(_sky_sse(geo[6], geo[7], 0),
+                             torch.zeros_like(field), denom=n * 3,
+                             pshape=pshape)
         sse_sky = _sky_sse(geo[6], geo[7], n_live)
-        sse, dfield2 = _row_scan_grads(
+        sse, dfield = _row_scan_grads(
             geo[0][:n_live], geo[1][:n_live], geo[2][:n_live],
             geo[3][:n_live], geo[4][:n_live], geo[5][:n_live], cellmap,
-            field2, geo[6][:n_live], geo[7][:n_live], grid, k_segments,
+            field, geo[6][:n_live], geo[7][:n_live], grid, k_segments,
             chunk=chunkv)
-        return _finalize2(sse + sse_sky, dfield2, denom=n * 3, pshape=pshape)
+        return _finalize(sse + sse_sky, dfield, denom=n * 3, pshape=pshape)
 
-    field = _pack_field(occupancy, albedo)
     sse = torch.zeros((), dtype=_F32, device=field.device)
     dfield = torch.zeros_like(field)
     for start in range(0, n, host_chunk):
