@@ -236,6 +236,61 @@ def sparse_inverse_rays(n: int, grid, device):
             torch.full((n, 3), 0.4, dtype=torch.float32, device=device))
 
 
+def schedule_edge_rays(n: int, grid, device, seed: int = 0):
+    """Rays that hold kernels B2/B3 to their plain versions where step
+    counts differ most within a warp: in every 32 consecutive rays, lanes 0, 4, ... start above the world box pointing up
+    and away (no step at all), lanes 1, 5, ... start inside it at 60% of its
+    height, almost level (long walks that spend a small budget), and the
+    rest start anywhere around the box in random directions.  Returns
+    float32 [n, 3] origins and unit directions (numpy seed ``seed``)."""
+    rng = np.random.default_rng(seed)
+    m, hz = float(grid.grid_size), float(grid.grid_height)
+    o = rng.uniform([-0.08 * m, -0.08 * m, -0.15 * hz],
+                    [1.08 * m, 1.08 * m, 1.15 * hz], (n, 3))
+    d = rng.normal(size=(n, 3))
+    lane = np.arange(n) % 32
+    miss = lane % 4 == 0
+    o[miss] = [-0.1 * m, -0.1 * m, 1.5 * hz]
+    d[miss] = [-0.5, -0.5, 0.7]
+    graze = lane % 4 == 1
+    a = rng.uniform(0.0, 2.0 * np.pi, int(graze.sum()))
+    o[graze] = np.stack([rng.uniform(0.0, m, a.shape[0]),
+                         rng.uniform(0.0, m, a.shape[0]),
+                         np.full(a.shape[0], 0.6 * hz)], 1)
+    d[graze] = np.stack([np.cos(a), np.sin(a), np.full(a.shape[0], -0.02)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o.astype(np.float32)).to(device),
+            torch.from_numpy(d.astype(np.float32)).to(device))
+
+
+# Blocks of 128 threads that one H100 SM holds at once (65,536 registers,
+# 228 KB of shared memory), from the ptxas register counts in PERF.md:
+# B2 at 55 registers, B3 at 40 (its K x 8-byte slots fit 12 blocks up to
+# K = 16).
+B2_BLOCKS_PER_SM = 9
+B3_BLOCKS_PER_SM = 12
+
+
+def edge_counts(blocks_per_sm: int, sms: int) -> tuple:
+    """Ray counts at a launch's edges: one ray, a warp and one ray less or
+    more, the threads resident at once (``blocks_per_sm`` blocks of 128 on
+    each of ``sms`` SMs) and one less or more (a second wave of blocks),
+    and 3.5 times that."""
+    resident = blocks_per_sm * sms * 128
+    return (1, 31, 33, resident - 1, resident + 1, resident * 7 // 2)
+
+
+def launch_order_simd(steps: torch.Tensor) -> float:
+    """SIMD efficiency of one thread per ray in launch order, from per-ray
+    step counts: a warp of 32 consecutive rays issues steps until its
+    longest ray ends, so the efficiency is the steps taken over 32 times
+    each warp's largest count, summed over warps."""
+    s = steps.reshape(-1).to(torch.int64)
+    s = torch.cat([s, s.new_zeros((-s.shape[0]) % 32)]).reshape(-1, 32)
+    longest = int(s.amax(1).sum())
+    return float(s.sum()) / (32 * longest) if longest else 0.0
+
+
 def active_fields(scene, grid, cells: torch.Tensor):
     """The frame's active-brick set (``bench.py:416-440``): the pool rows of
     the recorded ``cells``, a cellmap remapped onto them, and the fields

@@ -1,5 +1,6 @@
 // Amanatides-Woo DDA building blocks shared by the brick kernel (brick.cu,
-// kernel B1) and the hierarchical traversal kernel (traverse.cu, kernel B2).
+// kernel B1), the hierarchical traversal kernel (traverse.cu, kernel B2)
+// and the segment recorder (record.cu, kernel B3).
 //
 // The arithmetic is the reference's (voxel.cuh:26-133) in the exact
 // operation order of the plain torch versions (brickmap_tpu_torch/ops/
@@ -15,24 +16,27 @@ namespace bm {
 
 constexpr float kBig = 1000000.0f;
 
-// Per-axis ray constants: direction d, 1/d (0 where d == 0), the crossing
-// increment td = sign(d) / d and the integer step sign(d).
+// Per-axis ray constants: direction d, 1/d (0 where d == 0) and the
+// crossing increment td = sign(d) / d.
 struct Axis {
   float d, rd, td;
-  int step;
 };
 
 __device__ __forceinline__ float sign_f(float d) {
   return d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
 }
 
+// The integer cell step sign(d).  Not a member of Axis: ptxas keeps it in a
+// register where registers allow and otherwise re-forms it from d's sign.
+__device__ __forceinline__ int step_of(const Axis& a) {
+  return a.d > 0.0f ? 1 : (a.d < 0.0f ? -1 : 0);
+}
+
 __device__ __forceinline__ Axis make_axis(float d) {
   Axis a;
-  const float sf = sign_f(d);
   a.d = d;
   a.rd = d == 0.0f ? 0.0f : 1.0f / d;
-  a.td = sf * a.rd;
-  a.step = static_cast<int>(sf);
+  a.td = sign_f(d) * a.rd;
   return a;
 }
 
@@ -94,15 +98,67 @@ __device__ __forceinline__ int sub_dda(float ox, float oy, float oz,
     a = sel_axis(tx, ty, tz);
     int p, out;
     if (a == 0) {
-      px += ax.step; p = px; out = outx; tx = tx + ax.td;
+      px += step_of(ax); p = px; out = outx; tx = tx + ax.td;
     } else if (a == 1) {
-      py += ay.step; p = py; out = outy; ty = ty + ay.td;
+      py += step_of(ay); p = py; out = outy; ty = ty + ay.td;
     } else {
-      pz += az.step; p = pz; out = outz; tz = tz + az.td;
+      pz += step_of(az); p = pz; out = outz; tz = tz + az.td;
     }
     if (p == out) return 0;
   }
   return -1;
+}
+
+// One top-level step of kernels B2 and B3 out of the cell (px, py, pz),
+// which is inside the grid, whose index word is `word` and whose flag bits
+// say `occ`.  From an empty cell with skip radius R >= 1 (bits 28:20, minus
+// one) every cell within L-inf distance R is empty: jump each axis by its
+// crossing count up to the first crossing that leaves that box; otherwise
+// step the axis sel_axis picks.  Sets axis0 to the entry face of the new
+// cell (the latest crossing among the stepped axes) and returns false when
+// the step left the grid.
+__device__ __forceinline__ bool top_step(unsigned int word, bool occ,
+                                         const Axis& ax, const Axis& ay,
+                                         const Axis& az, int cx, int cy,
+                                         int cz, int& px, int& py, int& pz,
+                                         float& tx, float& ty, float& tz,
+                                         int& axis0) {
+  const int skip_r = max(static_cast<int>((word >> 20) & 0x1FFu) - 1, 0);
+  const int a1 = sel_axis(tx, ty, tz);
+  int kx = a1 == 0, ky = a1 == 1, kz = a1 == 2;
+  if (!occ && skip_r >= 1) {
+    const float rf = static_cast<float>(skip_r);
+    const float t_exit = fminf(fminf(ax.d != 0.0f ? tx + rf * ax.td : kBig,
+                                     ay.d != 0.0f ? ty + rf * ay.td : kBig),
+                               az.d != 0.0f ? tz + rf * az.td : kBig);
+    auto k_axis = [&](const Axis& a, float ta) {
+      if (a.d == 0.0f) return 0;
+      const int k = static_cast<int>(
+                        floorf((t_exit - ta) / (a.td == 0.0f ? 1.0f : a.td))) +
+                    1;
+      return min(max(k, 0), skip_r + 1);
+    };
+    const int jx = k_axis(ax, tx), jy = k_axis(ay, ty), jz = k_axis(az, tz);
+    if (jx + jy + jz != 0) {  // a degenerate jump falls back to one step
+      kx = jx; ky = jy; kz = jz;
+    }
+  }
+  px += step_of(ax) * kx;
+  py += step_of(ay) * ky;
+  pz += step_of(az) * kz;
+  tx = tx + static_cast<float>(kx) * ax.td;
+  ty = ty + static_cast<float>(ky) * ay.td;
+  tz = tz + static_cast<float>(kz) * az.td;
+  const float tlx = kx > 0 ? tx - ax.td : -kBig;
+  const float tly = ky > 0 ? ty - ay.td : -kBig;
+  const float tlz = kz > 0 ? tz - az.td : -kBig;
+  axis0 = tlx > tly ? (tlx > tlz ? 0 : 2) : (tly > tlz ? 1 : 2);
+  // The cell was inside and each axis moves only along its direction, so
+  // the step left the grid iff a coordinate passed cx/cy/cz upwards or 0
+  // downwards: one unsigned compare per axis.
+  return static_cast<unsigned int>(px) < static_cast<unsigned int>(cx) &&
+         static_cast<unsigned int>(py) < static_cast<unsigned int>(cy) &&
+         static_cast<unsigned int>(pz) < static_cast<unsigned int>(cz);
 }
 
 }  // namespace bm

@@ -33,6 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]
 
+MAX_RAYS = 1 << 28  # 3 * ray index stays within int32
+
 ptxas_summary: dict[str, list[str]] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -72,12 +74,13 @@ def _summary(text: str) -> list[str]:
             if any(k in line for k in keep)]
 
 
-def build(names=KERNELS) -> float:
-    """Build every stale library among ``names``, all nvcc processes started
-    together.  Returns the seconds spent (0 when nothing was stale)."""
+def build(names=KERNELS, force: bool = False) -> float:
+    """Build every stale library among ``names`` (every one with ``force``),
+    all nvcc processes started together.  Returns the seconds spent (0 when
+    nothing was built)."""
     t0 = time.perf_counter()
     with _lock:
-        todo = [n for n in names if _stale(n)]
+        todo = [n for n in names if force or _stale(n)]
         if not todo:
             return 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)

@@ -3,7 +3,8 @@
 The port of ``brickmap_tpu/pallas/record.py::record_segments`` (:353).
 :func:`record_segments` clips the rays to the world box with the torch
 :func:`~brickmap_tpu_torch.ops.traverse.aabb_clip`, then launches the CUDA
-kernel ``csrc/record.cu`` (one thread per ray) for rays on the card.  For rays
+kernel ``csrc/record.cu`` (one thread per ray, keeping its K segments in
+shared memory and writing its rows whole) for rays on the card.  For rays
 on the CPU it runs the plain version
 :func:`brickmap_tpu_torch.ops.record.record_segments_plain`; on any other
 device it raises.  ``record_segments.launches`` counts kernel launches;
@@ -26,11 +27,12 @@ from ..ops.record import DEFAULT_MAX_STEPS, record_segments_plain
 from ..ops.traverse import aabb_clip
 from . import build, hooked
 
-__all__ = ["record_segments"]
+__all__ = ["record_segments", "max_segments", "MAX_CELLS"]
 
 _F32, _I32 = torch.float32, torch.int32
 _KEYS = ("cells", "nd", "ncode", "count", "tminn", "entry_normal", "o_cells",
          "exhausted")
+MAX_CELLS = 1024  # cells an axis that the packed x | y << 10 | z << 20 holds
 
 
 def _bind(lib) -> None:
@@ -42,6 +44,12 @@ def _bind(lib) -> None:
     lib.record_launch.restype = i
 
 
+def max_segments() -> int:
+    """The most segments a ray can keep: a block's 128 x K x 8-byte slots
+    must fit the shared memory a block can use on sm_90 (227 KB)."""
+    return 232_448 // (128 * 8)
+
+
 def record_segments(origin: torch.Tensor, direction: torch.Tensor, scene,
                     grid: GridConfig, k_segments: int = 16,
                     max_steps: int = DEFAULT_MAX_STEPS,
@@ -51,8 +59,13 @@ def record_segments(origin: torch.Tensor, direction: torch.Tensor, scene,
     ``origin``, ``direction``: float32 [N, 3] world-space rays; ``scene``: a
     :class:`~brickmap_tpu_torch.scene.TorchScene` on their device.
     ``max_steps``: top-level DDA steps per ray; a ray still going after that
-    many is ``exhausted``.
+    many is ``exhausted``.  The grid may have at most :data:`MAX_CELLS`
+    cells an axis, on any device: a packed cell has 10 bits an axis.
     """
+    if max(grid.cells, grid.cells_height) > MAX_CELLS:
+        raise ValueError(f"a packed cell holds at most {MAX_CELLS} cells an "
+                         f"axis; the grid has {grid.cells} x {grid.cells} x "
+                         f"{grid.cells_height}")
     dev = origin.device
     keys = _KEYS + (("slot",) if with_slots else ())
     if dev.type == "cpu":
@@ -64,8 +77,10 @@ def record_segments(origin: torch.Tensor, direction: torch.Tensor, scene,
     if dev.type != "cuda":
         raise ValueError(f"record_segments: unsupported device {dev}")
     n = origin.shape[0]
-    if k_segments < 1:
-        raise ValueError("k_segments must be >= 1")
+    if not 1 <= k_segments <= max_segments():
+        raise ValueError(f"k_segments must be in [1, {max_segments()}]")
+    if n > build.MAX_RAYS:
+        raise ValueError(f"at most {build.MAX_RAYS} rays a launch")
     for name, a in (("origin", origin), ("direction", direction)):
         if a.dtype != _F32 or a.shape != (n, 3) or a.device != dev:
             raise ValueError(f"{name} must be float32 [N, 3] on {dev}")

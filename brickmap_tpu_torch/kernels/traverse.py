@@ -59,6 +59,8 @@ def trace(origins: torch.Tensor, dirs: torch.Tensor, scene, cam_brick,
     if dev.type != "cuda":
         raise ValueError(f"trace: unsupported device {dev}")
     n = origins.shape[0]
+    if n > build.MAX_RAYS:
+        raise ValueError(f"at most {build.MAX_RAYS} rays a launch")
     for name, a in (("origins", origins), ("dirs", dirs)):
         if a.dtype != _F32 or a.shape != (n, 3) or a.device != dev:
             raise ValueError(f"{name} must be float32 [N, 3] on {dev}")
