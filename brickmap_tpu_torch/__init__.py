@@ -9,7 +9,10 @@ beside it that runs for tensors on the CPU.
 
 Layers, entry point down:
 
-* :mod:`.app.cli` / :mod:`.app.benchmark` — ``render`` and ``bench``.
+* :mod:`.app.cli` / :mod:`.app.benchmark` — ``render``, ``bench``,
+  ``inverse`` and ``info``.
+* :mod:`.stream` — brick residency streaming: request pull, servicing,
+  pool growth.
 * :mod:`.render.pathtrace` — one sample wave: primary rays, bounces, NEE.
 * :mod:`.render.camera`, :mod:`.render.sampling`, :mod:`.ops.sunsky`.
 * :mod:`.kernels.traverse` — kernel B2, the hierarchical traversal

@@ -19,6 +19,10 @@ result names the device it ran on.
 ``bench.py::_sparse_bwd_full_bench``: one training step of the sparse
 inverse renderer over the full world at 1920x1080 rays, timed by host clock
 around work that ends in a synchronise.
+
+:func:`run_streaming_benchmark` is the port of ``bench.py::_streaming_bench``:
+a cold start from all-unloaded residency, every wave's requests serviced
+before the next wave.
 """
 
 from __future__ import annotations
@@ -434,3 +438,92 @@ def run_sparse_inverse_benchmark(scene, grid, *, width: int = 1920,
     if cuda:
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
     return out
+
+
+def run_streaming_benchmark(truth, cfg: BrickmapConfig, *, view: int = 0,
+                            width: int = 960, height: int = 540,
+                            waves: int = 12, queue_size: int = 1024,
+                            starting_capacity: int = 16, seed: int = 0,
+                            device="cuda", on_wave=None) -> dict:
+    """Cold-start streaming from viewpoint ``view`` (``bench.py::
+    _streaming_bench``): a :class:`~brickmap_tpu_torch.stream.StreamingScene`
+    over ``truth`` on ``device``, then ``waves`` sample waves of width x
+    height, each followed by the pull of its requests and their servicing.
+    The viewpoint is scaled to the world by grid_size / 4096.
+
+    Wave ``i`` draws its uniforms from a ``torch.Generator`` seeded with
+    ``seed + i``.  The wave is timed by CUDA events on the card (host clock
+    on the CPU); the pull, the host half of ``process_requests``
+    (``plan``: dedupe, cap, slots, growth, payloads) and its device half
+    (``install``: the copy, re-base and scatters, ending in a synchronise)
+    by host clock.  Returns ``_streaming_bench``'s keys
+    (``mrays_during_convergence`` over waves 1.., ``bricks_uploaded``,
+    ``upload_bricks_per_s`` over the pull and servicing time, ``waves``),
+    per-wave rows in ``per_wave``, the device name and the ``manager`` for
+    checks of the caller.  ``on_wave(i, row, requests)`` runs after each
+    wave's servicing, outside the timed regions.
+    """
+    from ..stream import StreamingScene, pull_requests
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    mgr = StreamingScene(truth, cfg.grid, queue_size=queue_size,
+                         starting_capacity=starting_capacity, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    cam = benchmark_cameras(cfg.grid.grid_size / 4096.0)[view]
+    arrays = camera_arrays_for(
+        cam, ss.sun_direction_from_position(SUN_POSITION, dev), width,
+        height, dev)
+    clock = _Clock(dev)
+    rows = []
+    for i in range(waves):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + i)
+        clock.start()
+        _, _, req = pathtrace.render_wave(mgr.device_scene(), arrays,
+                                          cam.brick_position, cfg, width,
+                                          height, generator=gen)
+        wave_s = clock.stop()
+        t0 = time.perf_counter()
+        got = pull_requests(req, mgr.queue_size)
+        t1 = time.perf_counter()
+        dropped = mgr.total_dropped
+        batch = mgr.plan(got)
+        t2 = time.perf_counter()
+        if batch is not None:
+            mgr.install(batch)
+            sync()
+        t3 = time.perf_counter()
+        row = {"wave": i, "wave_ms": wave_s * 1e3,
+               "traced": int(req["traced_rays"]),
+               "exhausted": int(req["exhausted_rays"]),
+               "requests": len(got),
+               "uploads": 0 if batch is None else batch.size,
+               "dropped": mgr.total_dropped - dropped,
+               "pull_ms": (t1 - t0) * 1e3, "plan_ms": (t2 - t1) * 1e3,
+               "install_ms": (t3 - t2) * 1e3,
+               "grew": batch is not None and batch.grew,
+               "pool_rows": mgr.pool_rows}
+        rows.append(row)
+        if on_wave is not None:
+            on_wave(i, row, got)
+    later = rows[1:]      # wave 0 pays the cold pipeline
+    service_s = sum(r["pull_ms"] + r["plan_ms"] + r["install_ms"]
+                    for r in rows) / 1e3
+    uploads = sum(r["uploads"] for r in rows)
+    return {
+        "mrays_during_convergence": (
+            sum(r["traced"] for r in later)
+            / (sum(r["wave_ms"] for r in later) / 1e3) / 1e6
+            if later else 0.0),
+        "bricks_uploaded": uploads,
+        "upload_bricks_per_s": uploads / service_s if service_s else 0.0,
+        "waves": waves, "init_s": init_s, "per_wave": rows,
+        "device": device_name(dev), "manager": mgr,
+    }

@@ -1,12 +1,15 @@
 """Command-line harness of the port: ``python -m brickmap_tpu_torch <cmd>``.
 
-The ``render``, ``bench`` and ``inverse`` subcommands of
+The ``render``, ``bench``, ``inverse`` and ``info`` subcommands of
 ``brickmap_tpu/app/cli.py``:
 
-* ``render``  — progressive path-traced render of a terrain world to PNG.
+* ``render``  — progressive path-traced render of a terrain world to PNG;
+  with ``--streaming`` every brick starts unloaded and each wave's requests
+  are serviced before the next (:mod:`brickmap_tpu_torch.stream`).
 * ``bench``   — the 9-viewpoint scripted benchmark (performance_measure.cpp).
 * ``inverse`` — inverse rendering with Adam: a dense grid, or with
   ``--sparse`` the brick-pool fields of a terrain world.
+* ``info``    — residency statistics of a saved scene.
 
 All run on the card unless ``--device cpu`` asks for the CPU.
 """
@@ -85,14 +88,20 @@ def cmd_render(args) -> int:
     from ..ops import sunsky as ss
     from ..render import pathtrace
     from ..render.camera import camera_arrays_for
+    from ..stream import StreamingScene, pull_requests
     from ..utils.image import write_png
-    from ..utils.metrics import FrameTimer
+    from ..utils.metrics import FrameTimer, MetricsLogger
 
     if args.spp < 1:
         raise CliError("--spp must be >= 1")
     dev = _device(args)
     cfg = _config(args)
     sc = _build_world(args, cfg, dev)
+    mgr = None
+    if args.streaming:
+        # The JAX CLI's starting capacity per superchunk segment.
+        mgr = StreamingScene(sc, cfg.grid, starting_capacity=256, device=dev)
+        sc = mgr.device_scene()
     cam = _camera_for(args)
     sun = ss.sun_direction_from_position(args.sun, dev)
     arrays = camera_arrays_for(cam, sun, args.width, args.height, dev)
@@ -101,20 +110,51 @@ def cmd_render(args) -> int:
 
     film = pathtrace.film_init(args.width, args.height, dev)
     timer = FrameTimer()
-    for s in range(args.spp):
-        t0 = time.perf_counter()
-        rgb, count, req = pathtrace.render_wave(
-            sc, arrays, cam.brick_position, cfg, args.width, args.height,
-            generator=gen)
-        film = pathtrace.film_add(film, rgb, count)
-        traced = int(req["traced_rays"])   # waits for the wave
-        dt = time.perf_counter() - t0
-        timer.add(dt)
-        if args.verbose:
-            print(f"wave {s}: {dt * 1000:.0f} ms, {traced} rays, "
-                  f"{int(req['exhausted_rays'])} exhausted", file=sys.stderr)
+    metrics = MetricsLogger(args.metrics, echo=args.verbose)
+    try:
+        for s in range(args.spp):
+            t0 = time.perf_counter()
+            rgb, count, req = pathtrace.render_wave(
+                sc, arrays, cam.brick_position, cfg, args.width, args.height,
+                generator=gen)
+            film = pathtrace.film_add(film, rgb, count)
+            traced = int(req["traced_rays"])   # waits for the wave
+            dt = time.perf_counter() - t0
+            timer.add(dt)
+            uploads = 0
+            if mgr is not None:
+                # The per-frame CPU half of streaming (main.cpp:144 ->
+                # Scene::process_load_queue): service this wave's requests;
+                # the next wave renders against the new residency.
+                got = pull_requests(req, mgr.queue_size)
+                if got:
+                    uploads = mgr.process_requests(got)
+                    sc = mgr.device_scene()
+            exhausted = int(req["exhausted_rays"])
+            metrics.log(s, wave_s=dt, traced=traced,
+                        mrays_s=traced / dt / 1e6, uploads=uploads,
+                        exhausted=exhausted)
+            if args.verbose:
+                extra = f", {uploads} uploads" if mgr is not None else ""
+                print(f"wave {s}: {dt * 1000:.0f} ms, {traced} rays, "
+                      f"{exhausted} exhausted{extra}", file=sys.stderr)
+    finally:
+        metrics.close()
     img = pathtrace.tonemap(film, args.width, args.height).cpu().numpy()
     write_png(args.out, img)
+    if mgr is not None:
+        surf = mgr.surface_stats()
+        print(f"streaming: {int(mgr.dump().sum())} bricks resident, "
+              f"{mgr.total_uploaded} uploaded, {mgr.total_dropped} dropped",
+              file=sys.stderr)
+        # The reference's locality invariant (README.md:7): every load is
+        # ray-reachable (an air face or a partly filled neighbour).
+        print(f"streaming: {surf['loaded_surface']} air-surface + "
+              f"{surf['loaded_reachable'] - surf['loaded_surface']} "
+              f"behind-partial / {surf['loaded_unreachable']} unreachable "
+              f"(world: {surf['surface_total']} surface, "
+              f"{surf['reachable_total']} reachable of "
+              f"{surf['nonempty_total']} non-empty)", file=sys.stderr)
     stats = timer.stats()
     stats["waves"] = stats.pop("frames")
     print(json.dumps({"out": args.out, "spp": args.spp,
@@ -266,6 +306,27 @@ def _cmd_inverse_sparse(args, dev) -> int:
     return 0
 
 
+def cmd_info(args) -> int:
+    """The JAX CLI's ``info`` (cli.py:450-462): the saved scene's
+    ``scene_summary`` with its keys, without the per-superchunk counts."""
+    from .. import scene as scene_mod
+    from ..config import GridConfig
+
+    path = args.load or args.path
+    if path is None:
+        raise CliError("info needs a scene file")
+    if not os.path.exists(path):
+        raise CliError(f"scene file not found: {path}")
+    sc = scene_mod.load_scene(path, _device(args))
+    cz, cy, cx = sc.index_volume.shape
+    info = scene_mod.scene_summary(sc, GridConfig(grid_size=cx * 8,
+                                                  grid_height=cz * 8))
+    info.pop("per_superchunk_loaded")
+    info.pop("resident_bytes")
+    print(json.dumps(info))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="brickmap_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -298,6 +359,15 @@ def main(argv=None) -> int:
     pr.add_argument("--sun", type=float, nargs=2, default=[0.05, 0.1])
     pr.add_argument("--focal-distance", type=float, default=1.0)
     pr.add_argument("--lens-radius", type=float, default=0.0)
+    pr.add_argument("--metrics", default=None,
+                    help="append one JSONL record per wave to this file")
+    pr.add_argument("--streaming", action="store_true",
+                    help="start with all bricks unloaded and stream residency "
+                         "from per-wave requests (reference C6-C8 pipeline)")
+    pr.add_argument("--engine", choices=["paged", "xla"], default=None,
+                    help="the JAX CLI's traversal choice; no meaning in the "
+                         "port and ignored: the traversal is kernel B2 on "
+                         "cuda and its plain version on cpu (--device)")
     pr.add_argument("--verbose", action="store_true")
     pr.set_defaults(fn=cmd_render)
 
@@ -323,6 +393,13 @@ def main(argv=None) -> int:
                     help="terrain world size for --sparse")
     pi.add_argument("--world-height", type=int, default=128)
     pi.set_defaults(fn=cmd_inverse)
+
+    pn = sub.add_parser("info", help="scene statistics")
+    pn.add_argument("path", nargs="?", help="scene .npz (or --load)")
+    pn.add_argument("--load", default=None)
+    pn.add_argument("--device", default="cuda",
+                    help="torch device (default cuda)")
+    pn.set_defaults(fn=cmd_info)
 
     args = p.parse_args(argv)
     try:

@@ -1,14 +1,38 @@
-"""Frame timing (the port's copy of ``FrameTimer`` from
-``brickmap_tpu/utils/metrics.py``): the same avg/min/max/fps statistics the
-reference's ``PerformanceMeasure`` appends to performance.txt
+"""Metrics and frame timing (the port's copy of ``MetricsLogger`` and
+``FrameTimer`` from ``brickmap_tpu/utils/metrics.py``): a JSONL metrics
+writer, and the same avg/min/max/fps statistics the reference's
+``PerformanceMeasure`` appends to performance.txt
 (``performance_measure.cpp:82-101``).
 """
 
 from __future__ import annotations
 
+import json
+import time
 from dataclasses import dataclass, field
 
-__all__ = ["FrameTimer"]
+__all__ = ["MetricsLogger", "FrameTimer"]
+
+
+class MetricsLogger:
+    """Append-mode JSONL metrics, one record per ``log`` call."""
+
+    def __init__(self, path: str | None = None, echo: bool = False):
+        self.path = path
+        self.echo = echo
+        self._fh = open(path, "a") if path else None
+
+    def log(self, step: int, **values) -> None:
+        rec = {"step": step, "ts": time.time(), **values}
+        if self._fh:
+            self._fh.write(json.dumps(rec) + "\n")
+            self._fh.flush()
+        if self.echo:
+            print(json.dumps(rec))
+
+    def close(self) -> None:
+        if self._fh:
+            self._fh.close()
 
 
 @dataclass

@@ -47,7 +47,19 @@ Phases, each printing its seconds; any failure raises and exits non-zero:
    line) and B4f/B4b on the first 131,072-row
    slice of the step's seg_cache, each timed there beside its bound and a
    PyTorch call; one slice of the replay is split by part and profiled for
-   the device's idle share, and must run no index_select or index_add_.
+   the device's idle share, and must run no index_select or index_add_;
+8. streaming: a cold start on the phase-5 world (``run_streaming_
+   benchmark``: view 0, 1920x1080, 3 bounces, queue 1024, segments from 16
+   rows, 48 waves, each wave's requests serviced before the next).  B2 is
+   held against its plain version on wave 0's primary rays over the cold
+   scene; every wave must launch B2, no plain traversal may run, no ray may
+   exhaust its budget and no wave may upload more than 1024 bricks; the
+   uploads must equal the resident counts and the loaded index words, no
+   loaded brick may be unreachable (the reference's locality invariant), a
+   manager on the CPU fed the same request lists must end in the same
+   state bit for bit, and one more wave over the streaming scene must equal
+   the same wave over the resident scene on every pixel that requested
+   nothing.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -55,6 +67,7 @@ The second-to-last line is the per-kernel JSON record, the last line
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -1020,6 +1033,193 @@ def main() -> int:
             "ms": b4b_ms,
             "plain_ms": b4b_plain_ms, "bound_ms": b4b_bound,
             "bound_by": b4b_by, "library_ms": b4b_lib_ms}
+
+    # ------------------------------------------------------------------
+    from brickmap_tpu_torch.config import BRICK_LOADED_BIT
+    from brickmap_tpu_torch.stream import StreamingScene
+
+    with phase("8 streaming: cold start on the 4096^2 x 512 world"):
+        w, h, waves8, queue = cfg.render.width, cfg.render.height, 48, 1024
+        budget = cfg.render.trace_budget
+        t0 = time.perf_counter()
+        truth = world.to("cpu")
+        print(f"  truth copied to the host in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        cam0 = benchmark.benchmark_cameras()[0]
+        arrays = camera_arrays_for(cam0, sun, w, h, dev)
+
+        # B2 at full size on the cold scene: wave 0's primary rays (its
+        # generator's draws, in the wave's tile order), where nearly every
+        # ray stops at an unloaded brick and requests it.
+        cold = StreamingScene(truth, cfg.grid, queue_size=queue, device=dev)
+        gen8 = torch.Generator(device=dev)
+        gen8.manual_seed(0)
+        u = draw_wave_uniforms(w * h, cfg.render.max_bounces, gen8, dev)
+        perm_np, inv_np = pathtrace._tile_permutation(w, h)
+        o8, d8 = primary_rays_from_arrays(
+            u["stratum"], u["jitter"], u["lens"], arrays,
+            torch.from_numpy(perm_np.copy()).to(dev), w, h)
+        csc = cold.device_scene()
+        got = ktrav.trace(o8, d8, csc, cam0.brick_position, cfg.grid, budget)
+        want = trace_rays(o8, d8, csc.index_volume, csc.pool_words,
+                          csc.pool_base, cam0.brick_position, cfg.grid,
+                          max_iters=budget)
+        torch.cuda.synchronize()
+        check_b2("cold full world (wave 0 primaries)", got, want, b2_err)
+        records["B2"]["max_abs_err"] = b2_err[0]
+        del cold, csc, got, want, o8, d8, u
+
+        # What the wave's per-call copies of the tile permutation and its
+        # inverse cost (render_wave copies both from pageable memory).
+        def perm_copies():
+            torch.from_numpy(perm_np.copy()).to(dev)
+            torch.from_numpy(inv_np.copy()).to(dev)
+            torch.cuda.synchronize()
+
+        perm_copies()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            perm_copies()
+        perm_ms = (time.perf_counter() - t0) * 1e3 / 3
+
+        plain_calls = {"B2": 0}
+        orig_b2 = counting(ktrav, "trace_rays", "B2")
+        launches8, requests8, b2_ms8 = [], [], []
+        # Host stalls that a wave's timings may hide: the garbage
+        # collector's passes (ms since the last wave) and the caching
+        # allocator's retries (it frees its cache and allocates again).
+        gc_ms, gc_t0 = [0.0], [0.0]
+
+        def gc_timer(stage, info):
+            if stage == "start":
+                gc_t0[0] = time.perf_counter()
+            else:
+                gc_ms[0] += (time.perf_counter() - gc_t0[0]) * 1e3
+
+        def retries():
+            return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+
+        retries0 = [retries()]
+
+        def on_wave8(i, row, reqs):
+            b2, n = timer8.take()["B2"]
+            launches8.append(n)
+            b2_ms8.append(b2)
+            requests8.append(reqs)
+            stall = (f"gc {gc_ms[0]:.3f} ms, allocator retries "
+                     f"{retries() - retries0[0]}")
+            gc_ms[0], retries0[0] = 0.0, retries()
+            print(f"  wave {i}: {row['wave_ms']:.3f} ms, {row['traced']} "
+                  f"rays, {row['traced'] / row['wave_ms'] / 1e3:.3f} "
+                  f"Mrays/s, B2 {b2:.3f} ms in {n} launches, exhausted "
+                  f"{row['exhausted']}; {row['requests']} requests pulled "
+                  f"in {row['pull_ms']:.3f} ms, {row['uploads']} uploads, "
+                  f"{row['dropped']} dropped, plan {row['plan_ms']:.3f} ms,"
+                  f" install {row['install_ms']:.3f} ms, pool "
+                  f"{row['pool_rows']} rows{' (grew)' if row['grew'] else ''}"
+                  f"; {stall}", flush=True)
+
+        ktrav.trace.launches = 0
+        gc.callbacks.append(gc_timer)
+        try:
+            with benchmark.KernelTimes(B2=ktrav.trace) as timer8:
+                out8 = benchmark.run_streaming_benchmark(
+                    truth, cfg, view=0, width=w, height=h, waves=waves8,
+                    queue_size=queue, starting_capacity=16, seed=0,
+                    device=dev, on_wave=on_wave8)
+        finally:
+            gc.callbacks.remove(gc_timer)
+        b2_launches8 = ktrav.trace.launches
+        ktrav.trace_rays = orig_b2
+        mgr = out8.pop("manager")
+        rows8 = out8.pop("per_wave")
+        wave_ms = [r["wave_ms"] for r in rows8]
+        print(f"  manager cold init {out8['init_s']:.3f} s; "
+              f"{out8['mrays_during_convergence']:.3f} Mrays/s over waves "
+              f"1-{waves8 - 1}; {out8['bricks_uploaded']} bricks uploaded, "
+              f"{out8['upload_bricks_per_s']:.1f} bricks/s over the pull "
+              f"and servicing; waves {min(wave_ms):.3f}-{max(wave_ms):.3f} "
+              f"ms (sum {sum(wave_ms):.3f}), B2 {sum(b2_ms8):.3f} ms in "
+              f"{b2_launches8} launches, pull "
+              f"{sum(r['pull_ms'] for r in rows8):.3f} ms, plan "
+              f"{sum(r['plan_ms'] for r in rows8):.3f} ms, install "
+              f"{sum(r['install_ms'] for r in rows8):.3f} ms, "
+              f"{sum(r['grew'] for r in rows8)} growths, perm/inv copies "
+              f"{perm_ms:.3f} ms a wave "
+              f"({100 * perm_ms * waves8 / sum(wave_ms):.1f}% of the waves) "
+              f"on {out8['device']}", flush=True)
+        sc8 = mgr.device_scene()
+        print(f"  device bytes: streaming scene {sc8.nbytes} (pool "
+              f"{sc8.pool_words.numel() * 4}) against the resident "
+              f"{world.nbytes}", flush=True)
+        if b2_launches8 != sum(launches8) or min(launches8) < 1:
+            fail(f"a streaming wave did not launch B2: {launches8}")
+        if plain_calls["B2"]:
+            fail(f"the plain traversal ran in the streaming waves: "
+                 f"{plain_calls}")
+        if any(r["exhausted"] for r in rows8):
+            fail(f"exhausted rays: {[r['exhausted'] for r in rows8]}")
+        if any(r["uploads"] > queue for r in rows8):
+            fail(f"a wave uploaded more than {queue} bricks")
+        loaded_words = int(((sc8.index_volume & i32(BRICK_LOADED_BIT)) != 0)
+                           .sum())
+        if not (mgr.total_uploaded == int(mgr.dump().sum()) == loaded_words
+                == out8["bricks_uploaded"] > 0):
+            fail(f"uploads {mgr.total_uploaded}, resident "
+                 f"{int(mgr.dump().sum())}, loaded words {loaded_words}")
+        t0 = time.perf_counter()
+        surf = mgr.surface_stats()
+        print(f"  streaming: {int(mgr.dump().sum())} bricks resident, "
+              f"{mgr.total_uploaded} uploaded, {mgr.total_dropped} dropped")
+        print(f"  streaming: {surf['loaded_surface']} air-surface + "
+              f"{surf['loaded_reachable'] - surf['loaded_surface']} "
+              f"behind-partial / {surf['loaded_unreachable']} unreachable "
+              f"(world: {surf['surface_total']} surface, "
+              f"{surf['reachable_total']} reachable of "
+              f"{surf['nonempty_total']} non-empty; "
+              f"{time.perf_counter() - t0:.2f} s)", flush=True)
+        if surf["loaded_unreachable"]:
+            fail("a loaded brick is unreachable")
+
+        # The device's scatters and re-basing against a manager on the CPU
+        # fed the same request lists.
+        t0 = time.perf_counter()
+        replay = StreamingScene(truth, cfg.grid, queue_size=queue,
+                                device="cpu")
+        for reqs in requests8:
+            replay.process_requests(reqs)
+        st_dev, st_cpu = mgr.state(), replay.state()
+        for k, v in st_cpu.items():
+            if not np.array_equal(st_dev[k], v):
+                fail(f"streaming state {k} differs from the CPU replay")
+        print(f"  CPU replay of the {len(requests8)} request lists: state "
+              f"equal ({time.perf_counter() - t0:.2f} s)", flush=True)
+        del replay, st_dev, st_cpu
+
+        # One more wave, the same uniforms over the streaming and the
+        # resident scene: a pixel whose rays requested nothing never met an
+        # unloaded brick (the mask is sticky over the path), so it must be
+        # equal bit for bit.
+        gen8.manual_seed(waves8)
+        u = draw_wave_uniforms(w * h, cfg.render.max_bounces, gen8, dev)
+        rgb_s, cnt_s, req_s = pathtrace.render_wave(
+            sc8, arrays, cam0.brick_position, cfg, w, h, uniforms=u)
+        rgb_r, cnt_r, req_r = pathtrace.render_wave(
+            world, arrays, cam0.brick_position, cfg, w, h, uniforms=u)
+        free = ~req_s["mask"]
+        n_free = int(free.sum())
+        if int(req_s["exhausted_rays"]) or int(req_r["exhausted_rays"]):
+            fail("exhausted rays in the closing waves")
+        if bool(req_r["mask"].any()):
+            fail("the resident scene requested bricks")
+        if not (n_free > 0 and torch.equal(rgb_s[free], rgb_r[free])
+                and torch.equal(cnt_s[free], cnt_r[free])):
+            fail(f"the streaming wave differs from the resident one on its "
+                 f"{n_free} request-free pixels")
+        print(f"  wave {waves8}: {n_free} of {w * h} pixels requested "
+              f"nothing; their rgb and count equal the resident scene's "
+              f"bit for bit", flush=True)
+        del mgr, sc8, truth, rgb_s, cnt_s, req_s, rgb_r, cnt_r, req_r, u
 
     for r in records.values():
         for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

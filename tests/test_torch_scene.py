@@ -4,6 +4,8 @@ The same inputs, made with numpy, go through ``brickmap_tpu`` and the port;
 index words, pools and bases must agree bit for bit.
 """
 
+import json
+
 import jax  # noqa: F401  (JAX on the CPU, as tests/conftest.py configures)
 import numpy as np
 import pytest
@@ -131,13 +133,128 @@ def test_chebyshev_distance_matches_jax(rng):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+def assert_same_summary(port, ref):
+    """scene_summary of the port equal to the JAX package's, key for key
+    (the port adds ``resident_bytes``)."""
+    assert list(port) == list(ref) + ["resident_bytes"]
+    for k, v in ref.items():
+        if k == "per_superchunk_loaded":
+            assert port[k].dtype == v.dtype and port[k].shape == v.shape
+            np.testing.assert_array_equal(port[k], v)
+        else:
+            assert port[k] == v, k
+
+
 def test_scene_summary_counts():
-    _, tg = grids(*MULTI)
+    jg, tg = grids(*MULTI)
     port = tscene.generate_terrain_scene(tg, device="cpu")
-    info = tscene.scene_summary(port)
+    info = tscene.scene_summary(port, tg)
     assert info["nonempty_bricks"] == info["loaded_bricks"] \
         == info["num_bricks"] > 0
     assert info["pool_bytes"] == port.num_bricks * 64
+    assert info["per_superchunk_loaded"].shape == (1, 2, 2)
+    assert int(info["per_superchunk_loaded"].sum()) == info["loaded_bricks"]
+    assert_same_summary(info, jscene.scene_summary(
+        jscene.generate_terrain_scene(jg), jg))
+
+
+def test_scene_summary_matches_jax_partly_loaded(rng):
+    """Some bricks loaded, some unloaded, over four superchunks, and a
+    non-default superchunk size."""
+    for sc_size in (16, 8):
+        jg = JGrid(grid_size=256, grid_height=128,
+                   supergrid_cell_size=sc_size)
+        tg = GridConfig(grid_size=256, grid_height=128,
+                        supergrid_cell_size=sc_size)
+        ref = jscene.generate_terrain_scene(jg, feature_scale=64.0)
+        iv = np.asarray(ref.index_volume).copy()
+        flip = ((iv & np.uint32(0x8000_0000)) != 0) \
+            & (rng.random(iv.shape) < 0.4)
+        iv[flip] = (iv[flip] & np.uint32(0xFF000)) | np.uint32(0x4000_0000)
+        ref = jscene.VoxelScene(index_volume=iv, pool_words=ref.pool_words,
+                                pool_base=ref.pool_base)
+        port = tscene.scene_from_numpy(iv, ref.pool_words, ref.pool_base,
+                                       device="cpu")
+        assert_same_summary(tscene.scene_summary(port, tg),
+                            jscene.scene_summary(ref, jg))
+
+
+def jax_scene_with_fields(rng, jg):
+    ref = jscene.scene_from_dense(rng.random((128, 128, 128)) < 0.02, jg)
+    p = ref.pool_words.shape[0]
+    return jscene.VoxelScene(
+        index_volume=ref.index_volume, pool_words=ref.pool_words,
+        pool_base=ref.pool_base,
+        occupancy=rng.random((p, 8, 8, 8)).astype(np.float32),
+        albedo=rng.random((p, 8, 8, 8, 3)).astype(np.float32))
+
+
+def assert_same_npz(a: str, b: str):
+    with np.load(a) as x, np.load(b) as y:
+        assert sorted(x.files) == sorted(y.files)
+        for k in x.files:
+            assert x[k].dtype == y[k].dtype and x[k].shape == y[k].shape, k
+            np.testing.assert_array_equal(x[k], y[k])
+
+
+def test_save_load_fields_interchange(tmp_path, rng):
+    """occupancy/albedo survive the .npz round trip both ways: a JAX file
+    loads in the port and is saved back with the same keys, dtypes and
+    values; a port file with fields loads in the JAX package."""
+    jg, _ = grids(*SMALL)
+    ref = jax_scene_with_fields(rng, jg)
+    q = str(tmp_path / "jax.npz")
+    jscene.save_scene(q, ref)
+    port = tscene.load_scene(q, device="cpu")
+    assert port.occupancy.dtype == torch.float32
+    np.testing.assert_array_equal(port.albedo.numpy(), ref.albedo)
+    assert_same_scene(port, ref)
+    q2 = str(tmp_path / "port.npz")
+    tscene.save_scene(q2, port)
+    assert_same_npz(q, q2)
+
+    port2 = tscene.scene_from_numpy(ref.index_volume, ref.pool_words,
+                                    ref.pool_base, device="cpu")
+    port2 = tscene.TorchScene(port2.index_volume, port2.pool_words,
+                              port2.pool_base,
+                              occupancy=torch.from_numpy(ref.occupancy),
+                              albedo=torch.from_numpy(ref.albedo))
+    assert port2.to("cpu").albedo is not None
+    p = str(tmp_path / "port2.npz")
+    tscene.save_scene(p, port2)
+    back = jscene.load_scene(p)
+    np.testing.assert_array_equal(back.occupancy, ref.occupancy)
+    np.testing.assert_array_equal(back.albedo, ref.albedo)
+    assert_same_npz(p, q)
+    # Without fields, neither package writes the keys.
+    p3 = str(tmp_path / "bare.npz")
+    tscene.save_scene(p3, tscene.TorchScene(
+        port2.index_volume, port2.pool_words, port2.pool_base))
+    bare = tscene.load_scene(p3, device="cpu")
+    assert bare.occupancy is None and bare.albedo is None
+    assert jscene.load_scene(p3).occupancy is None
+
+
+def test_cli_info_matches_jax(tmp_path, rng, capsys):
+    """The port's ``info`` prints the JAX ``info`` dict for the same file."""
+    import argparse
+
+    from brickmap_tpu.app import cli as jcli
+    from brickmap_tpu_torch.app import cli as tcli
+
+    jg, _ = grids(*MULTI)
+    ref = jscene.generate_terrain_scene(jg, residency="streaming")
+    q = str(tmp_path / "world.npz")
+    jscene.save_scene(q, ref)
+    assert jcli.cmd_info(argparse.Namespace(load=q)) == 0
+    want = capsys.readouterr().out.strip()
+    for argv in (["info", q], ["info", "--load", q]):
+        assert tcli.main(argv + ["--device", "cpu"]) == 0
+        got = capsys.readouterr().out.strip()
+        assert json.loads(got) == json.loads(want)
+        assert got == want
+    assert tcli.main(["info", str(tmp_path / "no.npz"), "--device",
+                      "cpu"]) == 2
 
 
 # ---------------------------------------------------------------------------
