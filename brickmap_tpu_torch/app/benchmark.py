@@ -23,6 +23,10 @@ around work that ends in a synchronise.
 :func:`run_streaming_benchmark` is the port of ``bench.py::_streaming_bench``:
 a cold start from all-unloaded residency, every wave's requests serviced
 before the next wave.
+
+:func:`run_dense_inverse_benchmark` is the port of ``bench.py::_bwd_bench``:
+forward + backward of the dense compositor over a 64^3 grid at 1920x1080
+rays.
 """
 
 from __future__ import annotations
@@ -218,6 +222,39 @@ class KernelTimes:
                          len(w.events))
             w.events.clear()
         return out
+
+
+def run_dense_inverse_benchmark(device="cuda", width: int = 1920,
+                                height: int = 1080) -> dict:
+    """fwd+bwd throughput of the dense differentiable compositor
+    (``diff/render.py::l2_loss_and_grads``, max_steps 192) over a 64^3
+    occupancy + albedo grid (uniform from ``default_rng(0)``), one ray per
+    pixel from (32, 32, 32) - 96 dir with normal-drawn directions, target
+    0.5 (``bench.py:277-305``).  One warm-up call, then 3 timed calls by
+    host clock around work that ends in a synchronise.  Returns
+    ``{"mrays_per_s", "loss", "rays", "seconds", "device"}``."""
+    from ..diff.render import l2_loss_and_grads
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    occ = rng.uniform(0, 1, (64, 64, 64)).astype(np.float32)
+    alb = rng.uniform(0, 1, (64, 64, 64, 3)).astype(np.float32)
+    n = width * height
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    origins = (np.array([32, 32, 32]) - dirs * 96).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (origins, dirs, occ, alb)]
+    args += [torch.zeros((n, 3), device=dev),
+             torch.full((n, 3), 0.5, device=dev)]
+    loss = float(l2_loss_and_grads(*args, max_steps=192)[0])
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = l2_loss_and_grads(*args, max_steps=192)
+        float(out[0])   # waits for the step
+    dt = time.perf_counter() - t0
+    return {"mrays_per_s": reps * n / dt / 1e6, "loss": loss, "rays": n,
+            "seconds": dt / reps, "device": device_name(dev)}
 
 
 def sparse_inverse_rays(n: int, grid, device):

@@ -71,16 +71,14 @@ class InverseRenderer:
     learning_rate: float = 0.05
     max_steps_per_ray: int = 128
     rays_per_chunk: int = 32768
-    mesh: object | None = None           # multi-card sharding: not ported
+    mesh: object | None = None           # parallel.render.Mesh: shard rays
     metrics: object | None = None        # anything with .log(step, **kw)
     device: str = "cuda"
     step: int = field(default=0, init=False)
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                "InverseRenderer(mesh=...): sharded training is not ported "
-                "yet (ROADMAP A12)")
+            self.device = self.mesh.device
         self.occupancy = torch.full(self.grid_shape, 0.3,
                                     dtype=torch.float32, device=self.device)
         self.albedo = torch.full((*self.grid_shape, 3), 0.5,
@@ -93,13 +91,26 @@ class InverseRenderer:
 
     # ------------------------------------------------------------------
     def train_step(self, origins, directions, background, target) -> float:
-        """One gradient step on an L2 image loss; returns the loss."""
-        from .render import l2_loss_and_grads
+        """One gradient step on an L2 image loss; returns the loss.  With a
+        mesh every rank passes the whole batch and takes its shard of the
+        rays; the gradients are averaged over the mesh, so every rank makes
+        the same update."""
+        if self.mesh is not None:
+            from ..parallel.render import inverse_train_step, shard_rays
 
-        loss, grads = l2_loss_and_grads(
-            origins, directions, self.occupancy, self.albedo, background,
-            target, max_steps=self.max_steps_per_ray,
-            rays_per_chunk=self.rays_per_chunk)
+            o, d, bg, tgt = shard_rays(self.mesh, (origins, directions,
+                                                   background, target))
+            loss, docc, dalb = inverse_train_step(
+                self.mesh, o, d, self.occupancy, self.albedo, bg, tgt,
+                max_steps=self.max_steps_per_ray)
+            grads = (docc, dalb)
+        else:
+            from .render import l2_loss_and_grads
+
+            loss, grads = l2_loss_and_grads(
+                origins, directions, self.occupancy, self.albedo, background,
+                target, max_steps=self.max_steps_per_ray,
+                rays_per_chunk=self.rays_per_chunk)
         adam_step(self._opt, self._params, grads)
         self.step += 1
         if self.metrics is not None:

@@ -31,11 +31,12 @@ import torch
 from ..config import BrickmapConfig
 from ..kernels.traverse import trace
 from ..ops import sunsky as sunsky_mod
+from ..stream import pull_requests
 from .camera import primary_rays_from_arrays
 from .sampling import cone_sample, cosine_hemisphere, draw_wave_uniforms
 
-__all__ = ["render_wave", "film_init", "film_add", "tonemap",
-           "rescue_budget"]
+__all__ = ["render_wave", "wave_for_indices", "render_frame", "film_init",
+           "film_add", "tonemap", "rescue_budget"]
 
 _RESULT_KEYS = ("hit", "t", "normal", "request", "request_pos", "exhausted",
                 "resume_t")
@@ -236,30 +237,26 @@ def _tile_permutation(width: int, height: int, tile: int = 128):
     return perm, inv
 
 
-def render_wave(scene, camera_arrays: dict, cam_brick, cfg: BrickmapConfig,
-                width: int, height: int, generator=None, uniforms=None):
-    """Trace one full sample wave (1 spp for every pixel).
+def wave_for_indices(scene, idx, camera_arrays: dict, cam_brick,
+                     cfg: BrickmapConfig, width: int, height: int,
+                     generator=None, uniforms=None):
+    """Trace one sample wave for an explicit pixel-index tensor ``idx`` [M].
 
-    Lanes are pixels in square-tile order (:func:`_tile_permutation`);
-    outputs are returned in row-major pixel order.  ``uniforms`` holds every
-    random number the wave consumes, in lane order
-    (:func:`~brickmap_tpu_torch.render.sampling.draw_wave_uniforms`); when
-    None they are drawn from ``generator`` on the scene's device.
-
-    Returns (delta_rgb [N,3], delta_count [N], requests dict with ``mask``,
-    ``pos``, ``traced_rays`` and ``exhausted_rays``) — add to a Film.
+    The shard body of ray-sharded rendering (each rank passes its own pixel
+    slice, :mod:`brickmap_tpu_torch.parallel.render`), of
+    :func:`render_frame`'s chunks and of :func:`render_wave`.  ``uniforms``
+    holds every random number the wave consumes, in ``idx`` order
+    (:func:`~brickmap_tpu_torch.render.sampling.draw_wave_uniforms` of M
+    lanes); when None they are drawn from ``generator`` on the scene's
+    device.  Returns (rgb [M,3], count [M], requests dict with ``mask``,
+    ``pos``, ``traced_rays`` and ``exhausted_rays``) in ``idx`` order.
     """
-    dev = scene.device
-    n = width * height
-    perm_np, inv_np = _tile_permutation(width, height)
-    perm = torch.from_numpy(perm_np.copy()).to(dev)
-    inv = torch.from_numpy(inv_np.copy()).to(dev)
     if uniforms is None:
-        uniforms = draw_wave_uniforms(n, cfg.render.max_bounces, generator,
-                                      dev)
+        uniforms = draw_wave_uniforms(idx.shape[0], cfg.render.max_bounces,
+                                      generator, scene.device)
     sun_dir = camera_arrays["sun_direction"]
 
-    st = _primary_state(uniforms, camera_arrays, width, height, perm)
+    st = _primary_state(uniforms, camera_arrays, width, height, idx)
     for bounce in range(cfg.render.max_bounces + 1):
         res = _trace_live(torch.cat([st["origins"], st["sh_o"]]),
                           torch.cat([st["dirs"], st["sh_d"]]),
@@ -269,6 +266,66 @@ def render_wave(scene, camera_arrays: dict, cam_brick, cfg: BrickmapConfig,
                            uniforms["hemi"][bounce], st, res, sun_dir, cfg)
     res = _trace_live(st["sh_o"], st["sh_d"], st["sh_active"], scene,
                       cam_brick, cfg)
-    rgb, count, req = _final_accum_update(st, res)
+    return _final_accum_update(st, res)
+
+
+def render_wave(scene, camera_arrays: dict, cam_brick, cfg: BrickmapConfig,
+                width: int, height: int, generator=None, uniforms=None):
+    """Trace one full sample wave (1 spp for every pixel).
+
+    :func:`wave_for_indices` over the pixels in square-tile order
+    (:func:`_tile_permutation`), with outputs returned in row-major pixel
+    order.  ``uniforms`` are in that tile (lane) order.
+
+    Returns (delta_rgb [N,3], delta_count [N], requests dict with ``mask``,
+    ``pos``, ``traced_rays`` and ``exhausted_rays``) — add to a Film.
+    """
+    dev = scene.device
+    perm_np, inv_np = _tile_permutation(width, height)
+    perm = torch.from_numpy(perm_np.copy()).to(dev)
+    inv = torch.from_numpy(inv_np.copy()).to(dev)
+    rgb, count, req = wave_for_indices(scene, perm, camera_arrays, cam_brick,
+                                       cfg, width, height, generator,
+                                       uniforms)
     return rgb[inv], count[inv], dict(req, mask=req["mask"][inv],
                                       pos=req["pos"][inv])
+
+
+def render_frame(scene, camera_arrays: dict, cam_brick, cfg: BrickmapConfig,
+                 width: int, height: int, rays_per_chunk: int = 61440,
+                 generator=None, chunk_uniforms=None,
+                 queue_size: int = 1024):
+    """One sample wave rendered in row-major pixel chunks of
+    ``rays_per_chunk`` (the JAX package's ``render_frame``).
+
+    Every chunk has the same size: a short last chunk wraps back over the
+    pixels before it, and its duplicates are dropped.  ``chunk_uniforms[c]``
+    are chunk c's uniforms in its pixel order (JAX: ``fold_in(key, c)``);
+    when None each chunk draws from ``generator``.  Each chunk's requests
+    are pulled with ``queue_size`` (the streaming manager's; at most
+    ``4 * queue_size`` lanes a chunk, :func:`~brickmap_tpu_torch.stream.
+    pull_requests`).
+
+    Returns (rgb [N,3], count [N], traced_rays int, requests list of
+    (x, y, z), exhausted_rays int).
+    """
+    dev = scene.device
+    n = width * height
+    rays_per_chunk = min(rays_per_chunk, n)
+    rgb_parts, count_parts, reqs = [], [], []
+    traced = exhausted = 0
+    for c, start in enumerate(range(0, n, rays_per_chunk)):
+        stop = min(start + rays_per_chunk, n)
+        idx = torch.arange(stop - rays_per_chunk, stop, device=dev)
+        rgb, count, req = wave_for_indices(
+            scene, idx, camera_arrays, cam_brick, cfg, width, height,
+            generator,
+            None if chunk_uniforms is None else chunk_uniforms[c])
+        keep = rays_per_chunk - (stop - start)
+        rgb_parts.append(rgb[keep:])
+        count_parts.append(count[keep:])
+        traced += int(req["traced_rays"])
+        exhausted += int(req["exhausted_rays"])
+        reqs.extend(pull_requests(req, queue_size))
+    return (torch.cat(rgb_parts), torch.cat(count_parts), traced, reqs,
+            exhausted)

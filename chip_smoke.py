@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of brickmap_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [OUT_DIR]
 
-Phases, each printing its seconds; any failure raises and exits non-zero:
+OUT_DIR keeps phase 9's images, metrics and profiler trace (in a new
+``viewer_*`` directory); without it they go to a temporary directory that
+is removed.  Phases, each printing its seconds; any failure raises and exits non-zero:
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels (nvcc, all sources at once, rebuilt even where a
@@ -59,7 +61,26 @@ Phases, each printing its seconds; any failure raises and exits non-zero:
    manager on the CPU fed the same request lists must end in the same
    state bit for bit, and one more wave over the streaming scene must equal
    the same wave over the resident scene on every pixel that requested
-   nothing.
+   nothing;
+9. the viewer: ``cli.main(["render", ..., "--turntable", "3", "--spp", "2",
+   "--serve", "0", "--preview-every", "1", "--profile", ..., "--metrics",
+   ...])`` in this process (it builds phase 5's world itself), 1920x1080,
+   3 bounces, view 0's camera orbiting a point 300 voxels ahead of it; a
+   client thread fetches ``/frame.png`` and ``/stats.json`` from the served
+   page and posts one fly-camera move.  Three PNGs and ``frames`` 3, B2 in
+   every wave, no plain traversal, 0 exhausted, the post applied once and
+   followed by a film reset, and the trace file naming ``traverse_kernel``.
+   Then one view-0 wave under ``torch.profiler``: the device operations by
+   time and the device's idle share of the wave;
+10. the sharded paths at world size 1 over NCCL: ``render_wave_sharded``
+   equal to ``wave_for_indices`` on the same pixels and uniforms bit for
+   bit; ``render_frame`` in 61,440-ray chunks equal to one
+   ``render_wave`` with the same per-pixel uniforms (0 exhausted, the same
+   requests); ``inverse_train_step_sparse`` at 2,073,600 rays, K = 8 equal
+   to ``l2_loss_and_grads_sparse`` (loss equal, gradients within 1e-6 of
+   their largest value) through B3, B4f and B4b; ``run_scaling_benchmark``
+   at one rank on the scaling CLI's 512^2 x 128 world at 512x288; then the
+   dense compositor's fwd+bwd Mrays/s (``run_dense_inverse_benchmark``).
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -67,13 +88,19 @@ The second-to-last line is the per-kernel JSON record, the last line
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -179,6 +206,23 @@ def check_b2(tag, got, want, max_err):
           f"{int(want['exhausted'].sum())} exhausted, max steps "
           f"{int(want['iters'])}: equal", flush=True)
     max_err[0] = max(max_err[0], err)
+
+
+def device_busy(prof):
+    """(busy ms, first-to-last ms, activities) of the device work a profile
+    holds: the union of its CUDA activities' time ranges."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        fail("the profiler saw no device activity")
+    busy_us, end = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3, (end - spans[0][0]) / 1e3, len(spans)
 
 
 def ptxas_line(name: str) -> str:
@@ -975,19 +1019,9 @@ def main() -> int:
             one_slice()
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t1) * 1e3
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        if not spans:
-            fail("the profiler saw no device activity in the slice")
-        busy_us, end = 0.0, spans[0][0]
-        for a, b in spans:
-            if b > end:
-                busy_us += b - max(a, end)
-                end = b
-        busy_ms, span_ms = busy_us / 1e3, (end - spans[0][0]) / 1e3
+        busy_ms, span_ms, n_act = device_busy(prof)
         print(f"  one profiled call of the slice: {traced_ms:.3f} ms host, "
-              f"{len(spans)} device activities over {span_ms:.3f} ms from "
+              f"{n_act} device activities over {span_ms:.3f} ms from "
               f"first to last, {busy_ms:.3f} ms busy -> device idle "
               f"{1 - busy_ms / traced_ms:.3f} of the call, "
               f"{1 - busy_ms / span_ms:.3f} of its device span; top by "
@@ -1220,6 +1254,383 @@ def main() -> int:
               f"nothing; their rgb and count equal the resident scene's "
               f"bit for bit", flush=True)
         del mgr, sc8, truth, rgb_s, cnt_s, req_s, rgb_r, cnt_r, req_r, u
+
+    # ------------------------------------------------------------------
+    from brickmap_tpu_torch.app import cli
+    from brickmap_tpu_torch.utils import preview
+
+    with phase("9 viewer: render --turntable 3 --spp 2 --serve 0 "
+               "--preview-every 1 --profile on the 4096^2 x 512 world"):
+        w, h = cfg.render.width, cfg.render.height
+        # The run's PNGs, metrics and trace: in a new directory under the
+        # one named on the command line (kept), else in a temporary one.
+        keep = sys.argv[1] if len(sys.argv) > 1 else None
+        if keep:
+            os.makedirs(keep, exist_ok=True)
+        out_dir = tempfile.mkdtemp(prefix="viewer_", dir=keep)
+        prof_dir = os.path.join(out_dir, "profile")
+        metrics_path = os.path.join(out_dir, "metrics.jsonl")
+        cam0 = benchmark.benchmark_cameras()[0]
+        look = [p + 300.0 * d for p, d in zip(cam0.position, cam0.direction)]
+        argv = ["render", "--out", os.path.join(out_dir, "view.png"),
+                "--width", str(w), "--height", str(h), "--bounces",
+                str(cfg.render.max_bounces), "--world",
+                str(cfg.grid.grid_size), "--world-height",
+                str(cfg.grid.grid_height), "--max-steps",
+                str(cfg.render.max_top_steps), "--spp", "2",
+                "--turntable", "3", "--serve", "0", "--preview-every", "1",
+                "--profile", prof_dir, "--metrics", metrics_path,
+                "--camera", *(str(p) for p in cam0.position), "--look",
+                *(str(p) for p in look)]
+
+        # The served page's client: once the loop serves frame 1, fetch the
+        # frame and the stats and post one fly-camera move.
+        servers, got9 = [], {}
+
+        class Served(preview.PreviewServer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                servers.append(self)
+
+        def client():
+            t_end = time.perf_counter() + 300
+            while not servers and time.perf_counter() < t_end:
+                time.sleep(0.005)
+            url = f"http://127.0.0.1:{servers[0].port}"
+            while time.perf_counter() < t_end:
+                with urllib.request.urlopen(url + "/stats.json",
+                                            timeout=10) as r:
+                    st = json.loads(r.read())
+                if st.get("frame", 0) >= 1:
+                    break
+                time.sleep(0.005)
+            with urllib.request.urlopen(url + "/frame.png", timeout=10) as r:
+                got9["png"] = r.read()
+            with urllib.request.urlopen(url + "/stats.json", timeout=10) as r:
+                got9["stats"] = json.loads(r.read())
+            req = urllib.request.Request(
+                url + "/camera", method="POST", data=json.dumps(
+                    {"move": [2.0, 0.5, 0.0], "rot": [0.2, -0.05]}).encode())
+            with urllib.request.urlopen(req, timeout=10) as r:
+                got9["post"] = r.status
+
+        def client_run():
+            try:
+                client()
+            except Exception as e:   # reported with the phase's checks
+                got9["error"] = repr(e)
+
+        events9, waves9 = [], []
+        orig_wave, orig_init = pathtrace.render_wave, pathtrace.film_init
+        orig_apply = cli._apply_camera_input
+
+        def counted_wave9(*a, **k):
+            before = ktrav.trace.launches
+            out = orig_wave(*a, **k)
+            waves9.append((ktrav.trace.launches - before,
+                           int(out[2]["exhausted_rays"])))
+            return out
+
+        def logged_init(*a, **k):
+            events9.append("film_init")
+            return orig_init(*a, **k)
+
+        def logged_apply(*a, **k):
+            events9.append("camera_input")
+            return orig_apply(*a, **k)
+
+        plain_calls = {"B2": 0}
+        orig_b2 = counting(ktrav, "trace_rays", "B2")
+        pathtrace.render_wave, pathtrace.film_init = counted_wave9, \
+            logged_init
+        cli._apply_camera_input = logged_apply
+        orig_server, preview.PreviewServer = preview.PreviewServer, Served
+        th9 = threading.Thread(target=client_run, daemon=True)
+        stdout9 = io.StringIO()
+        ktrav.trace.launches = 0
+        try:
+            th9.start()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout9):
+                rc = cli.main(argv)
+            loop_s = time.perf_counter() - t0
+            th9.join(timeout=60)
+        finally:
+            pathtrace.render_wave, pathtrace.film_init = orig_wave, \
+                orig_init
+            cli._apply_camera_input = orig_apply
+            preview.PreviewServer = orig_server
+            ktrav.trace_rays = orig_b2
+        b2_launches9 = ktrav.trace.launches
+        line = stdout9.getvalue().strip().splitlines()[-1]
+        print(f"  render: rc {rc}, {loop_s:.2f} s; {line}")
+        rec9 = json.loads(line)
+        pngs = sorted(f for f in os.listdir(out_dir)
+                      if f.startswith("view_") and f.endswith(".png"))
+        print(f"  B2 launches {b2_launches9}, per wave "
+              f"{[n for n, _ in waves9]}, exhausted "
+              f"{[e for _, e in waves9]}; PNGs {pngs}; film events "
+              f"{events9}; served: frame.png {len(got9.get('png', b''))} "
+              f"bytes, stats {got9.get('stats')}, POST /camera -> "
+              f"{got9.get('post')}", flush=True)
+        if rc != 0 or rec9["frames"] != 3 or rec9["waves"] != 6:
+            fail(f"the viewer run: rc {rc}, {rec9}")
+        if pngs != ["view_000.png", "view_001.png", "view_002.png"]:
+            fail(f"the viewer wrote {pngs}")
+        if len(waves9) != 6 or min(n for n, _ in waves9) < 1 \
+                or b2_launches9 != sum(n for n, _ in waves9):
+            fail(f"a viewer wave did not launch B2: {waves9}")
+        if plain_calls["B2"]:
+            fail(f"the plain traversal ran in the viewer: {plain_calls}")
+        if any(e for _, e in waves9):
+            fail(f"exhausted rays in the viewer: {waves9}")
+        if th9.is_alive() or not got9.get("png", b"").startswith(
+                b"\x89PNG") or got9.get("post") != 204 \
+                or "mrays_s" not in got9.get("stats", {}):
+            fail(f"the served page: {got9}")
+        # The post resets the film: the camera input is applied once, and
+        # the film is cleared right after it.
+        k9 = [i for i, e in enumerate(events9) if e == "camera_input"]
+        if len(k9) != 1 or events9[k9[0] + 1:k9[0] + 2] != ["film_init"]:
+            fail(f"the camera post did not reset the film: {events9}")
+        traces = [f for f in os.listdir(prof_dir)
+                  if f.endswith(".pt.trace.json")]
+        if not traces:
+            fail(f"no trace file in {prof_dir}")
+        newest = max((os.path.join(prof_dir, f) for f in traces),
+                     key=os.path.getmtime)
+        with open(newest) as fh:
+            text = fh.read()
+        print(f"  profile trace {newest}: {len(text)} bytes, names "
+              f"traverse_kernel {text.count('traverse_kernel')} times")
+        if "traverse_kernel" not in text:
+            fail("the viewer's trace does not name traverse_kernel")
+        del text
+        if not keep:
+            shutil.rmtree(out_dir)
+
+        # One full-world wave (view 0, 1080p, 3 bounces) under the
+        # profiler: device operations by time and the device's idle share
+        # of the call.
+        arrays = camera_arrays_for(cam0, sun, w, h, dev)
+        pathtrace.render_wave(world, arrays, cam0.brick_position, cfg, w, h,
+                              generator=gen)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof9:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pathtrace.render_wave(world, arrays, cam0.brick_position, cfg,
+                                  w, h, generator=gen)
+            torch.cuda.synchronize()
+            wave_ms = (time.perf_counter() - t1) * 1e3
+        busy_ms, span_ms, n_act = device_busy(prof9)
+        print(f"  one profiled wave (view 0): {wave_ms:.3f} ms host, "
+              f"{n_act} device activities over {span_ms:.3f} ms, "
+              f"{busy_ms:.3f} ms busy -> device idle "
+              f"{1 - busy_ms / wave_ms:.3f} of the wave; top device "
+              f"operations (ms, share of the wave, calls):")
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+
+        evs = prof9.key_averages()
+        for title, rows in (
+                ("kernels", [e for e in evs
+                             if e.device_type == DeviceType.CUDA]),
+                ("torch ops", [e for e in evs
+                               if e.device_type != DeviceType.CUDA])):
+            print(f"    by {title}:")
+            for e in sorted(rows, key=dev_us, reverse=True)[:10]:
+                print(f"    {dev_us(e) / 1e3:9.3f} ms  "
+                      f"{100 * dev_us(e) / 1e3 / wave_ms:5.1f}%  "
+                      f"{e.count:5d}x  {e.key[:90]}")
+        ops = sorted((e for e in evs if e.device_type != DeviceType.CUDA),
+                     key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+        print("    by host time (self): " + "; ".join(
+            f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms ({e.count}x)"
+            for e in ops), flush=True)
+        del prof9, evs
+
+    # ------------------------------------------------------------------
+    from brickmap_tpu_torch.app import scaling
+    from brickmap_tpu_torch.parallel import render as par
+    from brickmap_tpu_torch.stream import pull_requests
+
+    with phase("10 sharded paths and the dense stage: world size 1 over "
+               "NCCL"):
+        import torch.distributed as dist
+
+        w, h = cfg.render.width, cfg.render.height
+        n = w * h
+        scaling.init_single_process(dev)
+        try:
+            mesh = par.make_mesh(1)
+            print(f"  process group: backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, mesh {mesh.size} on "
+                  f"{mesh.device}")
+            cam0 = benchmark.benchmark_cameras()[0]
+            arrays = camera_arrays_for(cam0, sun, w, h, dev)
+            u = draw_wave_uniforms(n, cfg.render.max_bounces, gen, dev)
+            plain_calls = {"B2": 0, "B3": 0, "B4f": 0, "B4b": 0}
+            saved10 = [counting(ktrav, "trace_rays", "B2"),
+                       counting(krec, "record_segments_plain", "B3"),
+                       counting(kext, "extract_fwd_plain", "B4f"),
+                       counting(kext, "extract_bwd_plain", "B4b")]
+
+            def host_s(fn):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t1
+
+            ktrav.trace.launches = 0
+            (rgb_s, cnt_s, req_s), sharded_s = host_s(
+                lambda: par.render_wave_sharded(
+                    mesh, world, arrays, cam0.brick_position, cfg, w, h,
+                    uniforms=u))
+            b2_sharded = ktrav.trace.launches
+            (rgb_i, cnt_i, req_i), indices_s = host_s(
+                lambda: pathtrace.wave_for_indices(
+                    world, torch.arange(n, device=dev), arrays,
+                    cam0.brick_position, cfg, w, h, uniforms=u))
+            same = (torch.equal(rgb_s, rgb_i) and torch.equal(cnt_s, cnt_i)
+                    and torch.equal(req_s["mask"], req_i["mask"])
+                    and torch.equal(req_s["pos"], req_i["pos"])
+                    and int(req_s["traced_rays"]) == int(req_i["traced_rays"])
+                    and int(req_s["exhausted_rays"])
+                    == int(req_i["exhausted_rays"]) == 0)
+            print(f"  render_wave_sharded, view 0 at {w}x{h}: "
+                  f"{sharded_s * 1e3:.3f} ms (wave_for_indices "
+                  f"{indices_s * 1e3:.3f} ms), B2 launches {b2_sharded}, "
+                  f"{int(req_s['traced_rays'])} rays traced, equal to "
+                  f"wave_for_indices bit for bit: {same}")
+            if b2_sharded < 5 or not same:
+                fail("the sharded wave differs from wave_for_indices, or "
+                     "skipped B2")
+            del rgb_s, cnt_s, req_s, rgb_i, cnt_i, req_i
+
+            # render_frame with the per-pixel uniforms of one render_wave.
+            (rgb_w, cnt_w, req_w), wave_s = host_s(
+                lambda: pathtrace.render_wave(
+                    world, arrays, cam0.brick_position, cfg, w, h,
+                    uniforms=u))
+            reqs_w = pull_requests(req_w, n)
+            _, inv_np = pathtrace._tile_permutation(w, h)
+            inv = torch.from_numpy(inv_np.copy()).to(dev)
+            u_px = {k: v[..., inv] if k in ("cone", "hemi") else v[inv]
+                    for k, v in u.items()}
+            chunk = min(61440, n)
+            chunks = [torch.arange(min(s + chunk, n) - chunk,
+                                   min(s + chunk, n), device=dev)
+                      for s in range(0, n, chunk)]
+            us = [{k: v[..., c] if k in ("cone", "hemi") else v[c]
+                   for k, v in u_px.items()} for c in chunks]
+            ktrav.trace.launches = 0
+            (rgb_f, cnt_f, traced_f, reqs_f, exh_f), frame_s = host_s(
+                lambda: pathtrace.render_frame(
+                    world, arrays, cam0.brick_position, cfg, w, h,
+                    rays_per_chunk=chunk, chunk_uniforms=us, queue_size=n))
+            b2_frame = ktrav.trace.launches
+            same = torch.equal(rgb_f, rgb_w) and torch.equal(cnt_f, cnt_w)
+            print(f"  render_frame, view 0 in {len(chunks)} chunks of "
+                  f"{chunk}: {frame_s * 1e3:.3f} ms (render_wave "
+                  f"{wave_s * 1e3:.3f} ms), B2 launches {b2_frame}, "
+                  f"{traced_f} rays traced "
+                  f"(the wrapped chunk's repeats included), exhausted "
+                  f"{exh_f}, {len(reqs_f)} requests (render_wave: "
+                  f"{len(reqs_w)}); rgb and count equal to render_wave's "
+                  f"on the same per-pixel uniforms: {same}")
+            if b2_frame < len(chunks) or exh_f or not same \
+                    or set(reqs_f) != set(reqs_w):
+                fail("render_frame differs from render_wave")
+            del rgb_w, cnt_w, req_w, rgb_f, cnt_f, u, u_px, us
+
+            # The sparse step, sharded over the world of one, against the
+            # single-process step on the same inputs.
+            K = benchmark.SPARSE_K
+            o10, d10, bg10, tgt10 = benchmark.sparse_inverse_rays(
+                n, cfg.grid, dev)
+            segs = krec.record_segments(o10, d10, world, cfg.grid,
+                                        k_segments=K)
+            cm10, occ10, alb10 = benchmark.active_fields(world, cfg.grid,
+                                                         segs["cells"])
+            del segs
+            loss_1, (go_1, ga_1) = dsparse.l2_loss_and_grads_sparse(
+                o10, d10, world, cm10, occ10, alb10, bg10, tgt10, cfg.grid,
+                k_segments=K)
+            torch.cuda.synchronize()
+            krec.record_segments.launches = 0
+            kext.extract_fwd.launches = 0
+            kext.extract_bwd.launches = 0
+            t0 = time.perf_counter()
+            o_s, d_s, bg_s, tgt_s = par.shard_rays(mesh, (o10, d10, bg10,
+                                                          tgt10))
+            loss_s, go_s, ga_s = par.inverse_train_step_sparse(
+                mesh, o_s, d_s, world, cm10, occ10, alb10, bg_s, tgt_s,
+                cfg.grid, k_segments=K)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            launches10 = {"B3": krec.record_segments.launches,
+                          "B4f": kext.extract_fwd.launches,
+                          "B4b": kext.extract_bwd.launches}
+            errs = [(float((a - b).abs().max()), float(b.abs().max()))
+                    for a, b in ((go_s, go_1), (ga_s, ga_1))]
+            print(f"  inverse_train_step_sparse, {n} rays, K = {K}, "
+                  f"{occ10.shape[0]} active bricks: {step_s:.3f} s, "
+                  f"launches {launches10}; loss {float(loss_s)!r} vs "
+                  f"{float(loss_1)!r}; gradient max |diff| / max |grad| "
+                  f"{errs}", flush=True)
+            if any(v < 1 for v in launches10.values()):
+                fail(f"a kernel of the sharded step did not launch: "
+                     f"{launches10}")
+            if float(loss_s) != float(loss_1) or any(
+                    e > 1e-6 * m for e, m in errs):
+                fail("the sharded sparse step differs from the "
+                     "single-process step")
+            del o10, d10, bg10, tgt10, cm10, occ10, alb10, go_1, ga_1
+            del go_s, ga_s, o_s, d_s, bg_s, tgt_s
+
+            # The scaling harness at one rank, on the scaling CLI's world
+            # and frame (512^2 x 128, 512x288).
+            from brickmap_tpu_torch.config import BrickmapConfig, \
+                RenderConfig
+            scfg = BrickmapConfig(grid=GridConfig(grid_size=512,
+                                                  grid_height=128),
+                                  render=RenderConfig(width=512, height=288))
+            ssc = scene_mod.generate_terrain_scene(scfg.grid, device=dev)
+            ktrav.trace.launches = 0
+            krec.record_segments.launches = 0
+            out10 = scaling.run_scaling_benchmark(
+                ssc, scfg, 512, 288, device_counts=[1], verbose=False)
+            print(f"  run_scaling_benchmark: {json.dumps(out10)}; B2 "
+                  f"launches {ktrav.trace.launches}, B3 "
+                  f"{krec.record_segments.launches}", flush=True)
+            row = out10["rows"][0]
+            if not (out10["platform"] == "gpu" and out10["num_processes"]
+                    == 1 and row["forward_efficiency_pct"] == 100.0
+                    and row["inverse_rays_per_s"] > 0
+                    and ktrav.trace.launches > 0
+                    and krec.record_segments.launches > 0):
+                fail(f"the scaling harness: {out10}")
+            del ssc
+            if any(plain_calls.values()):
+                fail(f"plain versions ran on the sharded paths: "
+                     f"{plain_calls}")
+        finally:
+            ktrav.trace_rays, krec.record_segments_plain, \
+                kext.extract_fwd_plain, kext.extract_bwd_plain = saved10
+            dist.destroy_process_group()
+
+        dense = benchmark.run_dense_inverse_benchmark(dev)
+        print(f"  dense compositor fwd+bwd (64^3 grid, {dense['rays']} rays, "
+              f"max_steps 192): {dense['mrays_per_s']:.4f} Mrays/s, "
+              f"{dense['seconds']:.3f} s a call, loss {dense['loss']!r} on "
+              f"{dense['device']}", flush=True)
+        if not (math.isfinite(dense["loss"]) and dense["mrays_per_s"] > 0):
+            fail(f"the dense stage: {dense}")
 
     for r in records.values():
         for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

@@ -156,8 +156,14 @@ def test_trainer_converges_and_mesh_is_not_ported(rng):
                                 device="cpu")
     losses = [tr.train_step(o, d, bg, tgt) for _ in range(40)]
     assert losses[-1] < losses[0] * 0.5 and tr.step == 40
-    with pytest.raises(NotImplementedError, match="A12"):
-        toptim.InverseRenderer(mesh=object(), device="cpu")
+    # Sharded training is ported (tests/test_torch_parallel.py); a mesh this
+    # rank is outside of refuses the step instead of training alone.
+    from brickmap_tpu_torch.parallel.render import Mesh
+
+    outside = Mesh(None, 2, -1, torch.device("cpu"))
+    tr = toptim.InverseRenderer(grid_shape=(8, 8, 8), mesh=outside)
+    with pytest.raises(ValueError, match="outside the mesh"):
+        tr.train_step(o, d, bg, tgt)
 
 
 @pytest.mark.parametrize("extra", [["--grid", "8", "--rays", "256"],

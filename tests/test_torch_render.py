@@ -243,7 +243,9 @@ def test_port_imports_neither_jax_nor_brickmap_tpu():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'brickmap_tpu' or m.startswith('brickmap_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert 'brickmap_tpu_torch.stream' in sys.modules\n"
+        "for m in ('stream', 'parallel.render', 'app.scaling',"
+        " 'utils.preview', 'utils.profiling', 'utils.debug'):\n"
+        "    assert 'brickmap_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('brickmap_tpu_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
