@@ -27,6 +27,14 @@ before the next wave.
 :func:`run_dense_inverse_benchmark` is the port of ``bench.py::_bwd_bench``:
 forward + backward of the dense compositor over a 64^3 grid at 1920x1080
 rays.
+
+:func:`run_sparse_inverse_benchmark_small` is the port of
+``bench.py::_sparse_bwd_bench``: the sparse step over the 1024^2 x 256 world
+with fields over its whole pool.
+
+:func:`run_brick_benchmark` is the port of ``bench.py::_pallas_brick_bench``
+(config 1's stage): kernel B1 on 2M rays through one brick, through its
+wrapper as bench.py times it, and the kernel alone.
 """
 
 from __future__ import annotations
@@ -257,16 +265,18 @@ def run_dense_inverse_benchmark(device="cuda", width: int = 1920,
             "seconds": dt / reps, "device": device_name(dev)}
 
 
-def sparse_inverse_rays(n: int, grid, device):
-    """The sparse benchmark's frame (``bench.py:402-414``, seed 0): origins
-    uniform over the central half of the world in x and y ([1024, 3072]^2 in
-    the 4096^2 x 512 world) at z = 500/512 of its height, directions
-    ``normal`` with d_z = -|d_z| - 1, normalised; background 0, target
-    0.4."""
+def sparse_inverse_rays(n: int, grid, device, span=(0.25, 0.75)):
+    """The sparse benchmarks' frame (seed 0): origins uniform over the
+    ``span`` fractions of the world in x and y at z = 500/512 of its height,
+    directions ``normal`` with d_z = -|d_z| - 1, normalised; background 0,
+    target 0.4.  The default span is ``bench.py::_sparse_bwd_full_bench``'s
+    (:402-414; [1024, 3072]^2 at z = 500 in the 4096^2 x 512 world);
+    (1/16, 15/16) is ``_sparse_bwd_bench``'s (:336-347; [64, 960]^2 at
+    z = 250 in the 1024^2 x 256 world)."""
     rng = np.random.default_rng(0)
     m = float(grid.grid_size)
-    ox = rng.uniform(0.25 * m, 0.75 * m, n).astype(np.float32)
-    oy = rng.uniform(0.25 * m, 0.75 * m, n).astype(np.float32)
+    ox = rng.uniform(span[0] * m, span[1] * m, n).astype(np.float32)
+    oy = rng.uniform(span[0] * m, span[1] * m, n).astype(np.float32)
     oz = np.full(n, grid.grid_height * 500.0 / 512.0, np.float32)
     dirs = rng.normal(size=(n, 3)).astype(np.float32)
     dirs[:, 2] = -np.abs(dirs[:, 2]) - 1.0
@@ -330,6 +340,217 @@ def launch_order_simd(steps: torch.Tensor) -> float:
     s = torch.cat([s, s.new_zeros((-s.shape[0]) % 32)]).reshape(-1, 32)
     longest = int(s.amax(1).sum())
     return float(s.sum()) / (32 * longest) if longest else 0.0
+
+
+# GPU clock cycles a device sleep lasts before a run of timed launches
+# (~10 ms at the H100's 1.98 GHz boost): the host enqueues the launches
+# while the device sleeps, so their events see no gap between launches.
+SLEEP_CYCLES = 20_000_000
+
+
+def hbm_copies(nbytes: int, device) -> int:
+    """How many copies of a launch's inputs and outputs (``nbytes`` a copy)
+    hold more than twice the card's L2 together: launches that take the
+    copies in turn read and write HBM, not a warm L2."""
+    l2 = torch.cuda.get_device_properties(torch.device(device)).L2_cache_size
+    return 2 * l2 // max(nbytes, 1) + 1
+
+
+def kernel_alone_ms(runs: list, reps: int = 50) -> float:
+    """Mean ms of one launch over ``reps`` launches queued behind a device
+    sleep, by CUDA events around the launches; after one warm-up launch of
+    each.  ``runs``: callables that each launch the kernel (nothing else on
+    the stream) on one copy of the same inputs, taken in turn (see
+    :func:`hbm_copies`).  The sleep is doubled until the host has enqueued
+    every launch before it ends."""
+    for run in runs:
+        run()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
+        e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for k in range(reps):
+            runs[k % len(runs)]()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * e0.elapsed_time(a):
+            return a.elapsed_time(b) / reps
+        cycles *= 2
+    raise RuntimeError("the host could not enqueue the launches within the "
+                       "device sleep")
+
+
+def brick_kernel_ms(origins: torch.Tensor, dirs: torch.Tensor, words,
+                    reps: int = 50) -> float:
+    """Kernel B1 alone on these CUDA rays: :func:`kernel_alone_ms` over
+    launches that take :func:`hbm_copies` copies of the rays (24 B in and
+    9 B out a ray) in turn, each into outputs allocated once."""
+    from ..kernels import brick as kbrick
+
+    n = origins.shape[0]
+    runs = [kbrick.prepared_launch(origins.clone(), dirs.clone(), words)[0]
+            for _ in range(hbm_copies(33 * n, origins.device))]
+    return kernel_alone_ms(runs, reps)
+
+
+def brick_benchmark_rays(n: int = 1 << 21, seed: int = 0):
+    """The inputs of ``bench.py::_pallas_brick_bench`` (bench.py:538-549),
+    line for line: one brick at density 0.12 and ``n`` unit directions from
+    ``default_rng(seed)``, each ray aimed through the brick's centre from
+    distance 20 and moved to its entry face plus 1e-3.  Returns numpy
+    (words uint32 [16], origins float32 [n, 3], dirs float32 [n, 3])."""
+    from .. import bits
+
+    rng = np.random.default_rng(seed)
+    dense = rng.random((8, 8, 8)) < 0.12
+    words = bits.brick_words_from_dense(torch.from_numpy(dense)).numpy()
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    start = np.array([4.0, 4.0, 4.0]) - dirs * 20
+    with np.errstate(divide="ignore"):
+        tenter = np.minimum((0.0 - start) / dirs,
+                            (8.0 - start) / dirs).max(1) + 1e-3
+    origins = (start + dirs * tenter[:, None]).astype(np.float32)
+    return words.view(np.uint32), origins, dirs
+
+
+def brick_edge_rays(n: int, seed: int = 0):
+    """Rays that hold kernel B1 to its plain version where its padded walk
+    and its general loop part: about half the components of origins and
+    three fifths of those of directions drawn from edge values (origins at
+    and around -1, 0, 8, 2^20 and up to 2^31 - 128; directions 0,
+    -0, denormal, 2^-126, below 1e-4, 2^126 and up, inf, NaN), the rest
+    uniform in [-2, 10)^3 and unit directions (no NaN origin: its cell is
+    undefined in C).  Returns float32 numpy
+    (origins [n, 3], dirs [n, 3])."""
+    rng = np.random.default_rng(seed)
+    d_edge = np.array([0.0, -0.0, 1.0, -1.0, 1e-5, -1e-5, 1e-4, -2e-4,
+                       1e-20, -1e-30, 1e-40, -1e-40, 2.0 ** -126,
+                       -2.0 ** -126, 1.1754942e-38, 8.5e37, 2.0 ** 126,
+                       3e38, 0.577, np.inf, -np.inf, np.nan], np.float32)
+    o_edge = np.array([0.0, -0.0, 8.0, -1.0, -0.9999999, -1.001, 7.9999,
+                       8.05, 0.5, 3.0, 4.5, -5.5, 12.0, 100.25, 1e6,
+                       1048575.0, 1048576.0, 1e9, 2147483520.0], np.float32)
+    o = rng.uniform(-2.0, 10.0, (n, 3)).astype(np.float32)
+    o = np.where(rng.random((n, 3)) < 0.5, rng.choice(o_edge, (n, 3)), o)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = np.where(rng.random((n, 3)) < 0.6, rng.choice(d_edge, (n, 3)), d)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def run_brick_benchmark(device="cuda", n: int = 1 << 21,
+                        calls: int = 8) -> dict:
+    """Config 1's stage (``bench.py::_pallas_brick_bench``): kernel B1 on
+    :func:`brick_benchmark_rays` through one brick.
+
+    ``brick_mrays_per_s`` (the counterpart of bench.py's
+    ``pallas_brick_mrays_per_s``) is timed as bench.py times it: ``calls``
+    back-to-back calls of the public wrapper, each summing its hits, one
+    synchronise, the best of 3 rounds.  bench.py adds ``(rep*K+k)*1e-6`` to
+    the origins so that XLA cannot reuse a result; the port has no such
+    cache, so every call takes the same rays.  On the card also
+    ``wrapper_host_ms`` (the host's time to issue one wrapper call, behind a
+    device sleep) and ``kernel_ms`` (the kernel alone from HBM:
+    :func:`brick_kernel_ms`).
+    On the CPU the wrapper runs B1's plain version and ``kernel_ms`` is
+    None.  Returns ``{"brick_mrays_per_s", "call_ms", "wrapper_host_ms",
+    "kernel_ms", "rays", "hits", "device"}``."""
+    from ..kernels import brick as kbrick
+
+    dev = torch.device(device)
+    words_np, o_np, d_np = brick_benchmark_rays(n)
+    words = torch.from_numpy(words_np.view(np.int32)).to(dev)
+    o, d = torch.from_numpy(o_np).to(dev), torch.from_numpy(d_np).to(dev)
+    hits = int(kbrick.trace_single_brick(o, d, words)["hit"].sum())
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        acc = None
+        for _ in range(calls):
+            a = kbrick.trace_single_brick(o, d, words)["hit"].sum()
+            acc = a if acc is None else acc + a
+        int(acc)  # waits for the calls
+        best = min(best, (time.perf_counter() - t0) / calls)
+    out = {"brick_mrays_per_s": n / best / 1e6, "call_ms": best * 1e3,
+           "wrapper_host_ms": None, "kernel_ms": None, "rays": n,
+           "hits": hits, "device": device_name(dev)}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            kbrick.trace_single_brick(o, d, words)
+        out["wrapper_host_ms"] = (time.perf_counter() - t0) / calls * 1e3
+        torch.cuda.synchronize()
+        out["kernel_ms"] = brick_kernel_ms(o, d, words)
+    else:
+        t0 = time.perf_counter()
+        kbrick.trace_single_brick(o, d, words)
+        out["wrapper_host_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+# bench.py::_sparse_bwd_bench's origins: [64, 960]^2 of the 1024^2 world.
+SMALL_SPAN = (1 / 16, 15 / 16)
+
+
+def run_sparse_inverse_benchmark_small(device="cuda", grid=None, *,
+                                       width: int = 1920,
+                                       height: int = 1080) -> dict:
+    """The sparse step over the small world (``bench.py::_sparse_bwd_bench``):
+    the 1024^2 x 256 terrain (``grid``), :func:`sparse_inverse_rays` over
+    (1/16, 15/16) of it at width x height rays, fields over the whole pool (occupancy = bitmask *
+    0.8, albedo 0.6; no active-brick pre-pass), SPARSE_K segments.  One
+    warm-up ``l2_loss_and_grads_sparse``, the best of 2 uncached steps
+    (record, sorts, replay), then a ``seg_cache`` fill and the best of 2
+    cached steps (replay only), each by host clock around work that ends in
+    reading the loss.  Returns ``{"full", "cached_step"}`` in Mrays/s with
+    the seconds, the loss, the rays, the pool's bricks and the device."""
+    from .. import scene as scene_mod
+    from ..config import GridConfig
+    from ..diff.sparse import (cell_pool_map, l2_loss_and_grads_sparse,
+                               pool_fields_from_bitmask)
+
+    dev = torch.device(device)
+    grid = grid if grid is not None else GridConfig(grid_size=1024,
+                                                    grid_height=256)
+    sc = scene_mod.generate_terrain_scene(grid, device=dev)
+    cellmap = cell_pool_map(sc, grid)
+    occ, alb = pool_fields_from_bitmask(sc)
+    occ, alb = occ * 0.8, alb * 0.6
+    n = width * height
+    origins, dirs, bg, tgt = sparse_inverse_rays(n, grid, dev,
+                                                 span=SMALL_SPAN)
+
+    def run(cache=None):
+        loss, _ = l2_loss_and_grads_sparse(origins, dirs, sc, cellmap, occ,
+                                           alb, bg, tgt, grid,
+                                           k_segments=SPARSE_K,
+                                           seg_cache=cache)
+        return float(loss)
+
+    def best_of_2(cache=None):
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run(cache)
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    loss = run()
+    full_s = best_of_2()
+    cache: dict = {}
+    run(cache)
+    cached_s = best_of_2(cache)
+    return {"full": n / full_s / 1e6, "cached_step": n / cached_s / 1e6,
+            "full_s": full_s, "cached_step_s": cached_s, "loss": loss,
+            "rays": n, "bricks": sc.num_bricks, "device": device_name(dev)}
 
 
 def active_fields(scene, grid, cells: torch.Tensor):

@@ -4,7 +4,9 @@ The port of ``brickmap_tpu/pallas/brick.py``.  :func:`trace_single_brick`
 launches the CUDA kernel ``csrc/brick.cu`` for rays on the card and runs the
 plain torch version :func:`intersect_brick_plain` for rays on the CPU; on any
 other device it raises.  ``trace_single_brick.launches`` counts kernel
-launches.
+launches.  :func:`prepared_launch` gives the launch alone, for timing, and
+:func:`rcp_mismatches` checks the kernel's reciprocal against IEEE
+division.
 
 Semantics are those of ``dda_ref.intersect_brick`` (reference
 voxel.cuh:79-133): per ray, at most 22 DDA steps (3*8 - 2) through the
@@ -22,7 +24,8 @@ import torch
 from ..ops.traverse import BIG
 from . import build
 
-__all__ = ["trace_single_brick", "intersect_brick_plain", "MAX_STEPS"]
+__all__ = ["trace_single_brick", "intersect_brick_plain", "prepared_launch",
+           "rcp_mismatches", "MAX_STEPS"]
 
 MAX_STEPS = 22  # 3*8 - 2: worst-case voxel visits crossing an 8^3 brick
 
@@ -111,6 +114,26 @@ def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.brick_launch.argtypes = [p, p, p, i, p, p, p, p]
     lib.brick_launch.restype = i
+    lib.brick_rcp_mismatches.argtypes = [p, p]
+    lib.brick_rcp_mismatches.restype = i
+
+
+def _check_rays(origins: torch.Tensor, directions: torch.Tensor):
+    """The rays as contiguous float32 [N, 3] on one CUDA device."""
+    dev, n = origins.device, origins.shape[0]
+    for name, a in (("origins", origins), ("directions", directions)):
+        if a.dtype != _F32 or a.shape != (n, 3) or a.device != dev:
+            raise ValueError(f"{name} must be float32 [N, 3] on {dev}")
+    return origins.contiguous(), directions.contiguous()
+
+
+def _launch(lib, words, o, d, hit, t, axis) -> None:
+    with torch.cuda.device(o.device):
+        status = lib.brick_launch(
+            words.data_ptr(), o.data_ptr(), d.data_ptr(), o.shape[0],
+            hit.data_ptr(), t.data_ptr(), axis.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    build.check(status, "brick_kernel")
 
 
 def trace_single_brick(origins: torch.Tensor, directions: torch.Tensor,
@@ -125,24 +148,49 @@ def trace_single_brick(origins: torch.Tensor, directions: torch.Tensor,
         return {"hit": hit, "t": t, "axis": axis}
     if dev.type != "cuda":
         raise ValueError(f"trace_single_brick: unsupported device {dev}")
-    n = origins.shape[0]
-    for name, a in (("origins", origins), ("directions", directions)):
-        if a.dtype != _F32 or a.shape != (n, 3) or a.device != dev:
-            raise ValueError(f"{name} must be float32 [N, 3] on {dev}")
-    o, d = origins.contiguous(), directions.contiguous()
+    o, d = _check_rays(origins, directions)
+    n = o.shape[0]
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     t = torch.empty(n, dtype=_F32, device=dev)
     axis = torch.empty(n, dtype=_I32, device=dev)
     if n:
-        lib = build.load("brick", _bind)
-        with torch.cuda.device(dev):
-            status = lib.brick_launch(
-                words.data_ptr(), o.data_ptr(), d.data_ptr(), n,
-                hit.data_ptr(), t.data_ptr(), axis.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        build.check(status, "brick_kernel")
+        _launch(build.load("brick", _bind), words, o, d, hit, t, axis)
         trace_single_brick.launches += 1
     return {"hit": hit, "t": t, "axis": axis}
 
 
 trace_single_brick.launches = 0
+
+
+def prepared_launch(origins: torch.Tensor, directions: torch.Tensor, words):
+    """For timing the kernel alone: checks the CUDA inputs and allocates the
+    outputs once, then returns ``(run, out)``; each ``run()`` only launches
+    the kernel into ``out`` (dict hit / t / axis), without counting in
+    ``trace_single_brick.launches``."""
+    if origins.device.type != "cuda":
+        raise ValueError("prepared_launch needs CUDA tensors")
+    words = _as_words(words, origins.device)
+    o, d = _check_rays(origins, directions)
+    lib = build.load("brick", _bind)
+    n, dev = o.shape[0], o.device
+    out = {"hit": torch.empty(n, dtype=torch.bool, device=dev),
+           "t": torch.empty(n, dtype=_F32, device=dev),
+           "axis": torch.empty(n, dtype=_I32, device=dev)}
+    args = (words, o, d, out["hit"], out["t"], out["axis"])
+    return (lambda: _launch(lib, *args)), out
+
+
+def rcp_mismatches(device="cuda") -> int:
+    """How many d with 2^-126 <= |d| < 2^126 (every float of that range)
+    the reciprocal of B1's padded walk rounds unlike IEEE ``1 / d``: 0 is
+    what keeps the walk's ``t`` bit-equal to the plain version's."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("rcp_mismatches runs on a CUDA device")
+    lib = build.load("brick", _bind)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.brick_rcp_mismatches(
+            count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "rcp_check_kernel")
+    return int(count)

@@ -10,9 +10,20 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels (nvcc, all sources at once, rebuilt even where a
    build exists) and the native heightfield (g++); print the ptxas summary,
-   and fail if B2's or B3's build has a stack frame or spills;
-3. kernel B1 (brick DDA) against its plain torch version on 1M random rays
-   per brick, then the config-1 path (``render_single_brick`` at 256x256);
+   and fail if B1's, B2's or B3's build has a stack frame or spills;
+3. kernel B1 (brick DDA) against its plain torch version, every output
+   equal (``t`` included): 1M random rays at densities 0.12, 0.5 and 0.9,
+   ``bench.py``'s 2M rays, origins around the brick, edge values of
+   origins and directions (``brick_edge_rays``), empty and full
+   bricks, 1, 3, 4, 5, 1023, 1025 rays, one less and one more than every
+   count of threads that 1 to 8 blocks of 256 an SM make resident, and
+   views at a 12- and a 4-byte offset; the walk's reciprocal against IEEE
+   division on every float of the range it takes.  B1 alone (launches
+   queued behind a device sleep, over copies of the rays that exceed the
+   L2) at bench.py's shape beside its bound, with its SIMD efficiency and
+   ptxas line; then
+   bench.py's brick stage (``run_brick_benchmark``: Mrays/s through the
+   wrapper) and the config-1 path (``render_single_brick`` at 256x256);
 4. kernel B2 (hierarchical traversal) against its plain version on a
    512^2 x 128 terrain world, fully resident and with a third of the bricks
    unloaded: random rays, camera rays from inside and outside, cameras
@@ -80,7 +91,9 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    to ``l2_loss_and_grads_sparse`` (loss equal, gradients within 1e-6 of
    their largest value) through B3, B4f and B4b; ``run_scaling_benchmark``
    at one rank on the scaling CLI's 512^2 x 128 world at 512x288; then the
-   dense compositor's fwd+bwd Mrays/s (``run_dense_inverse_benchmark``).
+   dense compositor's fwd+bwd Mrays/s (``run_dense_inverse_benchmark``)
+   and the sparse step on the 1024^2 x 256 world
+   (``run_sparse_inverse_benchmark_small``, bench.py's small-world stage).
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -309,7 +322,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line}")
         if not native_ok[0]:
             fail("native heightfield (g++) did not build")
-        for name in ("traverse", "record"):
+        for name in ("brick", "traverse", "record"):
             if not ptxas_clean(name):
                 fail(f"{name}.cu: ptxas reports a stack frame or spills")
 
@@ -322,34 +335,102 @@ def main() -> int:
         return d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
 
     # ------------------------------------------------------------------
-    with phase("3 kernel B1 vs plain"):
+    with phase("3 kernel B1 vs plain, bench.py's brick stage, the config-1 "
+               "path"):
         n = 1 << 20
-        b1_err = 0.0
-        b1_plain_ms = b1_ms = None
+        # Cases: phase 3's random rays at three densities, bench.py's rays,
+        # origins around the brick (the general loop), empty and full
+        # bricks, the launch's edge sizes and two offset views.
+        cases = []
         for density in (0.12, 0.5, 0.9):
             occ = torch.rand((8, 8, 8), generator=gen, device=dev) < density
             words = bits.brick_words_from_dense(occ)
             o = torch.rand((n, 3), generator=gen, device=dev) * 8.2 - 0.1
-            d = rand_dirs(n)
+            cases.append((f"density {density}", words, o, rand_dirs(n)))
+        w_np, o_np, d_np = benchmark.brick_benchmark_rays()
+        words_b = torch.from_numpy(w_np.view(np.int32)).to(dev)
+        o_b, d_b = torch.from_numpy(o_np).to(dev), torch.from_numpy(d_np).to(dev)
+        cases.append(("bench.py's rays", words_b, o_b, d_b))
+        # One less and one more than the threads resident at 1..8 blocks
+        # of 256 an SM: the persistent grid's last full and first partial
+        # second pass, whatever the occupancy calculator gives.
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        resident = [sms * 256 * k for k in range(1, 9)]
+        n_w = max(n, resident[-1] + 1)
+        o_w = torch.rand((n_w, 3), generator=gen, device=dev) * 14.0 - 3.0
+        d_w = rand_dirs(n_w)
+        cases.append(("origins in [-3, 11)^3", words_b, o_w, d_w))
+        for fill, tag in ((0, "empty"), (-1, "full")):
+            cases.append((f"{tag} brick", torch.full((16,), fill,
+                                                     dtype=torch.int32,
+                                                     device=dev),
+                          o_w[:65536], d_w[:65536]))
+        for m in (1, 3, 4, 5, 1023, 1025, *(r + e for r in resident
+                                            for e in (-1, 1))):
+            cases.append((f"n = {m}", words_b, o_w[:m], d_w[:m]))
+        o_e, d_e = benchmark.brick_edge_rays(1 << 16)
+        cases.append(("edge values of origins and directions", words_b,
+                      torch.from_numpy(o_e).to(dev),
+                      torch.from_numpy(d_e).to(dev)))
+        cases.append(("origins[1:] (12-byte offset)", words_b, o_b[1:],
+                      d_b[1:]))
+        flat = torch.empty(3 * 4097 + 1, device=dev)
+        flat[1:] = o_w[:4097].reshape(-1)
+        cases.append(("a 4-byte offset view", words_b,
+                      flat[1:].view(4097, 3), d_w[:4097]))
+        for tag, words, o, d in cases:
             got = kbrick.trace_single_brick(o, d, words)
             hit, t, axis, steps = kbrick.intersect_brick_plain(words, o, d)
             torch.cuda.synchronize()
-            if not (torch.equal(got["hit"], hit)
-                    and torch.equal(got["axis"], axis)):
-                fail(f"B1 hit/axis differ at density {density}")
-            err = float((got["t"] - t).abs().max())
-            if not err <= 1e-4:
-                fail(f"B1 t differs by {err} at density {density}")
-            b1_err = max(b1_err, err)
-            print(f"  B1 density {density}: {int(hit.sum())} of {n} hit, "
-                  f"max |dt| {err:.3g}")
-        b1_ms = cuda_ms(lambda: kbrick.trace_single_brick(o, d, words), 20)
+            # t bit for bit, NaN where both are NaN (edge rays)
+            t_diff = (got["t"].view(torch.int32) != t.view(torch.int32)) & ~(
+                got["t"].isnan() & t.isnan())
+            for k, bad in (("hit", got["hit"] != hit),
+                           ("axis", got["axis"] != axis), ("t", t_diff)):
+                if bool(bad.any()):
+                    fail(f"B1 {tag}: {k} differs on {int(bad.sum())} rays")
+            print(f"  B1 {tag}: {int(hit.sum())} of {o.shape[0]} hit, max "
+                  f"steps {int(steps.max())}: hit, axis and t equal")
+            if tag == "density 0.9":
+                b1_ms_1m = benchmark.brick_kernel_ms(o, d, words)
+            if tag == "bench.py's rays":
+                steps_b = steps
+        b1_err = 0.0   # t equal bit for bit on every case
+        bad_rcp = kbrick.rcp_mismatches(dev)
+        if bad_rcp:
+            fail(f"B1's reciprocal differs from IEEE 1 / d on {bad_rcp} "
+                 f"floats of [2^-126, 2^126)")
+        print("  B1's reciprocal equals IEEE 1 / d on all 2 x 252 x 2^23 "
+              "floats of +-[2^-126, 2^126)")
+        n_b = o_b.shape[0]
+        b1_ms = benchmark.brick_kernel_ms(o_b, d_b, words_b)
+        b1_wrapper_ms = cuda_ms(lambda: kbrick.trace_single_brick(
+            o_b, d_b, words_b), 20)
         b1_plain_ms = cuda_ms(lambda: kbrick.intersect_brick_plain(
-            words, o, d), 3)
+            words_b, o_b, d_b), 3)
         # in: origin, direction (24 B); out: hit, t, axis (9 B); the brick.
-        b1_bound, b1_by = bound(n * 33 + 64, float(steps.sum()) * DDA_STEP_OPS)
-        print(f"  B1 at {n} rays: {b1_ms:.4f} ms (plain {b1_plain_ms:.3f} ms,"
-              f" bound {b1_bound:.4f} ms by {b1_by})")
+        b1_bound, b1_by = bound(n_b * 33 + 64,
+                                float(steps_b.sum()) * DDA_STEP_OPS)
+        b1_simd = benchmark.launch_order_simd(steps_b)
+        print(f"  B1 alone at bench.py's {n_b} rays: {b1_ms:.4f} ms, "
+              f"{b1_bound / b1_ms:.1%} of its bound {b1_bound:.4f} ms by "
+              f"{b1_by} ({float(steps_b.float().mean()):.3f} steps a ray, "
+              f"launch-order SIMD efficiency {b1_simd:.4f}); through the "
+              f"wrapper "
+              f"{b1_wrapper_ms:.4f} ms a call; plain {b1_plain_ms:.3f} ms; "
+              f"alone at phase 3's {n} rays, density 0.9: {b1_ms_1m:.4f} ms; "
+              f"ptxas {ptxas_line('brick')}", flush=True)
+        del cases, o_w, d_w, flat, steps_b
+
+        stage = benchmark.run_brick_benchmark(dev)
+        print(f"  brick stage (bench.py::_pallas_brick_bench, {stage['rays']}"
+              f" rays): brick_mrays_per_s {stage['brick_mrays_per_s']:.3f} "
+              f"({stage['call_ms']:.4f} ms a wrapper call, "
+              f"{stage['wrapper_host_ms']:.4f} ms of it the host's), kernel "
+              f"alone {stage['kernel_ms']:.4f} ms, {stage['hits']} hits on "
+              f"{stage['device']}", flush=True)
+        if not (stage["hits"] > 0 and stage["brick_mrays_per_s"] > 0):
+            fail(f"the brick stage: {stage}")
 
         # The config-1 path: one brick rendered through B1 at 256x256.
         occ = torch.rand((8, 8, 8), generator=gen, device=dev) < 0.3
@@ -383,8 +464,8 @@ def main() -> int:
             "source": "brickmap_tpu_torch/csrc/brick.cu",
             "replaces": "brickmap_tpu/pallas/brick.py:48",
             "launches": b1_launches, "max_abs_err": b1_err, "ms": b1_ms,
-            "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
-            "bound_by": b1_by, "library_ms": None}
+            "wrapper_ms": b1_wrapper_ms, "plain_ms": b1_plain_ms,
+            "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None}
 
     # ------------------------------------------------------------------
     b2_err = [0.0]
@@ -1631,6 +1712,20 @@ def main() -> int:
               f"{dense['device']}", flush=True)
         if not (math.isfinite(dense["loss"]) and dense["mrays_per_s"] > 0):
             fail(f"the dense stage: {dense}")
+
+        krec.record_segments.launches = 0
+        small = benchmark.run_sparse_inverse_benchmark_small(dev)
+        print(f"  sparse stage on the small world (bench.py::_sparse_bwd_"
+              f"bench, 1024^2 x 256, {small['bricks']} bricks, "
+              f"{small['rays']} rays, K = {benchmark.SPARSE_K}): full "
+              f"{small['full']:.4f} Mrays/s ({small['full_s']:.3f} s), "
+              f"cached_step {small['cached_step']:.4f} Mrays/s "
+              f"({small['cached_step_s']:.3f} s), loss {small['loss']!r}, "
+              f"B3 launches {krec.record_segments.launches} on "
+              f"{small['device']}", flush=True)
+        if not (math.isfinite(small["loss"]) and small["full"] > 0
+                and krec.record_segments.launches > 0):
+            fail(f"the small-world sparse stage: {small}")
 
     for r in records.values():
         for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

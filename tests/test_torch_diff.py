@@ -345,3 +345,54 @@ def test_sparse_inverse_benchmark_on_cpu():
     assert frame["seg_cache"]["n_live"] == out["live_rays"]
     assert set(out["kernels"]) == {"prepass", "warm-up", "uncached",
                                    "cache fill", "cached", "adam"}
+
+
+def sparse_small_recipe(n, lo=64.0, hi=960.0, z=250.0):
+    """bench.py::_sparse_bwd_bench's frame (bench.py:336-345), repeated here
+    in numpy with its constants as arguments."""
+    rng = np.random.default_rng(0)
+    ox = rng.uniform(lo, hi, n).astype(np.float32)
+    oy = rng.uniform(lo, hi, n).astype(np.float32)
+    oz = np.full(n, z, np.float32)
+    origins = np.stack([ox, oy, oz], 1)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs[:, 2] = -np.abs(dirs[:, 2]) - 1.0
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    return origins, dirs
+
+
+@pytest.mark.parametrize("grid, consts", [
+    (GridConfig(grid_size=1024, grid_height=256), (64.0, 960.0, 250.0)),
+    (TG, (8.0, 120.0, 125.0))])
+def test_sparse_small_frame_equals_bench_recipe(grid, consts):
+    """The small-world stage's frame is bench.py's, bit for bit, on its
+    1024^2 x 256 world; on a smaller grid the same fractions of it."""
+    from brickmap_tpu_torch.app.benchmark import SMALL_SPAN, \
+        sparse_inverse_rays
+
+    o, d, bg, tgt = sparse_inverse_rays(2048, grid, "cpu", span=SMALL_SPAN)
+    o_ref, d_ref = sparse_small_recipe(2048, *consts)
+    assert torch.equal(o, torch.from_numpy(o_ref))
+    assert torch.equal(d, torch.from_numpy(d_ref))
+    assert torch.equal(bg, torch.zeros((2048, 3)))
+    assert torch.equal(tgt, torch.full((2048, 3), 0.4))
+
+
+def test_sparse_small_benchmark_on_cpu():
+    """``run_sparse_inverse_benchmark_small`` on a 128^2 x 128 world: the
+    loss is the sparse step's on the whole pool's fields, and both rates
+    are reported with the device."""
+    from brickmap_tpu_torch.app.benchmark import SMALL_SPAN, \
+        run_sparse_inverse_benchmark_small, sparse_inverse_rays
+
+    out = run_sparse_inverse_benchmark_small("cpu", TG, width=16, height=8)
+    sc = tscene.generate_terrain_scene(TG, device="cpu")
+    occ, alb = tsparse.pool_fields_from_bitmask(sc)
+    o, d, bg, tgt = sparse_inverse_rays(128, TG, "cpu", span=SMALL_SPAN)
+    loss, _ = tsparse.l2_loss_and_grads_sparse(
+        o, d, sc, tsparse.cell_pool_map(sc, TG), occ * 0.8, alb * 0.6, bg,
+        tgt, TG, k_segments=8)
+    assert out["loss"] == float(loss)
+    assert out["rays"] == 128 and out["bricks"] == sc.num_bricks
+    assert out["full"] > 0 and out["cached_step"] > 0
+    assert out["device"] == "cpu"
