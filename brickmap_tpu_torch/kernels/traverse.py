@@ -7,7 +7,10 @@ kernel ``csrc/traverse.cu`` (one thread per ray) for rays on the card.  For
 rays on the CPU it runs the plain version
 :func:`brickmap_tpu_torch.ops.traverse.trace_rays`; on any other device it
 raises.  ``trace.launches`` counts kernel launches; ``trace.events`` is
-the event hook of :mod:`brickmap_tpu_torch.kernels`.
+the event hook of :mod:`brickmap_tpu_torch.kernels`.  :func:`launch_inputs`
+and :func:`launch_args` build a launcher's inputs and ctypes arguments
+(``notes/probe_torch_b2.py`` and the host rehearsal of ``csrc/traverse.cu``
+share them).
 
 The result is the ``trace_rays_paged`` contract (traverse3.py:938-947):
 ``hit``, ``t``, ``normal``, ``request``, ``request_pos``, ``exhausted``,
@@ -25,7 +28,7 @@ from ..config import GridConfig
 from ..ops.traverse import aabb_clip, trace_rays
 from . import build, hooked
 
-__all__ = ["trace"]
+__all__ = ["trace", "launch_inputs", "launch_args"]
 
 _F32, _I32 = torch.float32, torch.int32
 _KEYS = ("hit", "t", "normal", "request", "request_pos", "exhausted",
@@ -39,6 +42,52 @@ def _bind(lib) -> None:
         + [i] * 12 + [f, i]                  # grid, camera, LoD, brick, eps..
         + [p] * 8 + [p])                     # outputs, stream
     lib.traverse_launch.restype = i
+
+
+def launch_inputs(origins: torch.Tensor, dirs: torch.Tensor,
+                  grid: GridConfig):
+    """The launcher's per-ray inputs (the rays clipped to the world box,
+    contiguous: clipped origins, directions, entry normals, tmin, ok) and
+    its outputs, allocated on the rays' device: ``(inputs, out)``."""
+    dev = origins.device
+    n = origins.shape[0]
+    if n > build.MAX_RAYS:
+        raise ValueError(f"at most {build.MAX_RAYS} rays a launch")
+    for name, a in (("origins", origins), ("dirs", dirs)):
+        if a.dtype != _F32 or a.shape != (n, 3) or a.device != dev:
+            raise ValueError(f"{name} must be float32 [N, 3] on {dev}")
+    ok, tminn, clipped, entry_normal = aabb_clip(origins, dirs, grid)
+    inputs = tuple(a.contiguous() for a in (clipped, dirs, entry_normal,
+                                            tminn, ok))
+
+    def empty(*shape, dtype=_F32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = {
+        "hit": empty(n, dtype=torch.bool), "t": empty(n),
+        "normal": empty(n, 3), "request": empty(n, dtype=torch.bool),
+        "request_pos": empty(n, 3, dtype=_I32),
+        "exhausted": empty(n, dtype=torch.bool), "resume_t": empty(n),
+        "ray_iters": empty(n, dtype=_I32),
+    }
+    return inputs, out
+
+
+def launch_args(inputs, words: torch.Tensor, scene, cam, grid: GridConfig,
+                max_steps: int, out: dict, stream) -> tuple:
+    """``traverse_launch``'s arguments: ``inputs`` and ``out`` from
+    :func:`launch_inputs`, the index words as the kernel reads them (the
+    scene's ``index_volume``; a probe's build may read another layout of
+    the same words), the scene's pool and bases, then the grid, camera,
+    LoD, brick, epsilon and budget, the outputs and the stream."""
+    return (out["hit"].shape[0], *(a.data_ptr() for a in inputs),
+            words.data_ptr(), scene.pool_words.data_ptr(),
+            scene.pool_base.data_ptr(), grid.cells, grid.cells,
+            grid.cells_height, grid.supergrid_cell_size, grid.supergrid_xy,
+            grid.num_superchunks, *(int(c) for c in cam),
+            grid.lod_distance_8, grid.lod_distance_2, grid.brick_size,
+            grid.epsilon, max_steps,
+            *(out[k].data_ptr() for k in _KEYS[:-1]), stream)
 
 
 def trace(origins: torch.Tensor, dirs: torch.Tensor, scene, cam_brick,
@@ -58,12 +107,6 @@ def trace(origins: torch.Tensor, dirs: torch.Tensor, scene, cam_brick,
         return {k: res[k] for k in _KEYS}
     if dev.type != "cuda":
         raise ValueError(f"trace: unsupported device {dev}")
-    n = origins.shape[0]
-    if n > build.MAX_RAYS:
-        raise ValueError(f"at most {build.MAX_RAYS} rays a launch")
-    for name, a in (("origins", origins), ("dirs", dirs)):
-        if a.dtype != _F32 or a.shape != (n, 3) or a.device != dev:
-            raise ValueError(f"{name} must be float32 [N, 3] on {dev}")
     for name, a in (("index_volume", scene.index_volume),
                     ("pool_words", scene.pool_words),
                     ("pool_base", scene.pool_base)):
@@ -72,36 +115,14 @@ def trace(origins: torch.Tensor, dirs: torch.Tensor, scene, cam_brick,
     if tuple(scene.index_volume.shape) != (grid.cells_height, grid.cells,
                                            grid.cells):
         raise ValueError("scene.index_volume does not match the grid")
-
-    ok, tminn, clipped, entry_normal = aabb_clip(origins, dirs, grid)
-    d = dirs.contiguous()
-    clipped, entry_normal = clipped.contiguous(), entry_normal.contiguous()
-    ok, tminn = ok.contiguous(), tminn.contiguous()
-
-    def empty(*shape, dtype=_F32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    out = {
-        "hit": empty(n, dtype=torch.bool), "t": empty(n),
-        "normal": empty(n, 3), "request": empty(n, dtype=torch.bool),
-        "request_pos": empty(n, 3, dtype=_I32),
-        "exhausted": empty(n, dtype=torch.bool), "resume_t": empty(n),
-        "ray_iters": empty(n, dtype=_I32),
-    }
+    inputs, out = launch_inputs(origins, dirs, grid)
+    n = origins.shape[0]
     if n:
         lib = build.load("traverse", _bind)
         with torch.cuda.device(dev):
-            status = hooked(
-                trace, lib.traverse_launch, n, clipped.data_ptr(), d.data_ptr(), entry_normal.data_ptr(),
-                tminn.data_ptr(), ok.data_ptr(),
-                scene.index_volume.data_ptr(), scene.pool_words.data_ptr(),
-                scene.pool_base.data_ptr(), grid.cells, grid.cells,
-                grid.cells_height, grid.supergrid_cell_size,
-                grid.supergrid_xy, grid.num_superchunks, *cam,
-                grid.lod_distance_8, grid.lod_distance_2, grid.brick_size,
-                grid.epsilon, max_steps,
-                *(out[k].data_ptr() for k in _KEYS[:-1]),
-                torch.cuda.current_stream(dev).cuda_stream)
+            status = hooked(trace, lib.traverse_launch, *launch_args(
+                inputs, scene.index_volume, scene, cam, grid, max_steps, out,
+                torch.cuda.current_stream(dev).cuda_stream))
         build.check(status, "traverse_kernel")
         trace.launches += 1
     out["iters"] = out["ray_iters"].amax() if n else torch.zeros(
@@ -111,3 +132,4 @@ def trace(origins: torch.Tensor, dirs: torch.Tensor, scene, cam_brick,
 
 trace.launches = 0
 trace.events = None
+

@@ -30,8 +30,10 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    whose distances straddle each LoD switch, a tiny budget, and the
    schedule's edge cases (1, 31, 33 rays, the resident threads and one less
    or more, 3.5 times them; in each warp rays that take no step beside rays
-   that spend the budget; two launches back to back).  Every output must
-   be equal, ``t`` and ``resume_t`` included;
+   that spend the budget; two launches back to back), then on a 600^2 x 120
+   terrain whose cell extents (75 x 75 x 15) do not divide by 4, resident
+   and part unloaded.  Every output must be equal, ``t`` and ``resume_t``
+   included;
 5. the main path: the 4096^2 x 512 world built on the card, then the
    9-viewpoint benchmark at 1920x1080, 3 bounces (1 warm-up + 1 timed wave
    per view), with B2 held against its plain version at the main path's
@@ -543,7 +545,35 @@ def main() -> int:
             o_rand, d_rand, streaming.index_volume, streaming.pool_words,
             streaming.pool_base, (340, 30, 8), grid, max_iters=budget),
             b2_err)
-        del iv, first, second
+
+        # A world whose cell extents do not divide by 4 (75 x 75 x 15
+        # cells, superchunks of 5 bricks), resident and part unloaded.
+        grid_odd = GridConfig(grid_size=600, grid_height=120,
+                              supergrid_cell_size=5)
+        odd = scene_mod.generate_terrain_scene(grid_odd, device=dev)
+        iv_odd = odd.index_volume.clone()
+        flip = ((iv_odd & i32(BRICK_FLAG_BITS)) != 0) & (torch.rand(
+            iv_odd.shape, generator=gen, device=dev) < 1 / 3)
+        iv_odd[flip] = (iv_odd[flip] & BRICK_LOD_BITS) | BRICK_UNLOADED_BIT
+        odd_streaming = scene_mod.TorchScene(iv_odd, odd.pool_words,
+                                             odd.pool_base)
+        lo = torch.tensor([-40.0, -40.0, -20.0], device=dev)
+        hi = torch.tensor([640.0, 640.0, 140.0], device=dev)
+        o_odd = lo + torch.rand((d_rand.shape[0], 3), generator=gen,
+                                device=dev) * (hi - lo)
+        for sc_tag, sc in (("resident", odd), ("streaming", odd_streaming)):
+            for tag, cam_b, steps in (("random rays", (0, 0, 0), budget),
+                                      ("LoD camera (340, 30, 8)",
+                                       (340, 30, 8), budget),
+                                      ("tiny budget", (0, 0, 0), 16)):
+                got = ktrav.trace(o_odd, d_rand, sc, cam_b, grid_odd, steps)
+                want = trace_rays(o_odd, d_rand, sc.index_volume,
+                                  sc.pool_words, sc.pool_base, cam_b,
+                                  grid_odd, max_iters=steps)
+                torch.cuda.synchronize()
+                check_b2(f"75x75x15-cell world, {sc_tag} {tag}", got, want,
+                         b2_err)
+        del iv, first, second, odd, odd_streaming, iv_odd, got, want
 
     # ------------------------------------------------------------------
     with phase("5 main path: 4096^2 x 512 world, 9 views, 1920x1080, "
