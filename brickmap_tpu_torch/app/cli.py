@@ -115,7 +115,8 @@ def _config(args):
         grid=GridConfig(grid_size=args.world, grid_height=args.world_height),
         render=RenderConfig(width=args.width, height=args.height,
                             max_bounces=args.bounces,
-                            max_top_steps=args.max_steps))
+                            max_top_steps=args.max_steps),
+        seed=args.seed)
 
 
 def _device(args) -> torch.device:
@@ -150,7 +151,7 @@ def cmd_render(args) -> int:
         sc = mgr.device_scene()
     sun = ss.sun_direction_from_position(args.sun, dev)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
+    gen.manual_seed(cfg.seed)
 
     server = None
     if args.serve is not None:
@@ -279,7 +280,7 @@ def cmd_bench(args) -> int:
     sc = _build_world(args, cfg, dev)
     out = run_forward_benchmark(sc, cfg, waves_per_view=args.waves,
                                 warmup_waves=args.warmup,
-                                scale=args.world / 4096.0, seed=args.seed)
+                                scale=args.world / 4096.0, seed=cfg.seed)
     print(json.dumps({k: v for k, v in out.items() if k != "per_view"}))
     return 0
 
@@ -460,7 +461,7 @@ def cmd_scaling(args) -> int:
         out = run_scaling_benchmark(
             sc, cfg, args.width, args.height, device_counts=counts,
             waves=args.waves, inverse_rays=args.inverse_rays,
-            skip_inverse=args.skip_inverse, seed=args.seed)
+            skip_inverse=args.skip_inverse, seed=cfg.seed)
     finally:
         dist.destroy_process_group()
     print(json.dumps(out))

@@ -1,10 +1,9 @@
 """Static configuration for the brickmap renderer (the port's copy).
 
-Frozen dataclasses and bit constants of ``brickmap_tpu/config.py``, without
-the TPU traversal knobs (``paged_*``, ``rays_per_chunk``, ``rescue_*``): the
-port's traversal is one CUDA thread per ray and has no page rounds to tune.
-Of the presets, those of the paths ported so far: config 1 (one brick) and
-config 4 (the full world).
+Frozen dataclasses, bit constants and the five presets of
+``brickmap_tpu/config.py``, without the TPU traversal knobs (``paged_*``,
+``rays_per_chunk``, ``rescue_*``): the port's traversal is one CUDA thread
+per ray and has no page rounds to tune.
 
 Geometry conventions (identical to the reference):
 
@@ -100,6 +99,10 @@ class GridConfig:
         return self.supergrid_xy * self.supergrid_xy * self.supergrid_z
 
     @property
+    def bricks_per_superchunk(self) -> int:
+        return self.supergrid_cell_size ** 3
+
+    @property
     def world_max(self) -> tuple[float, float, float]:
         return (float(self.grid_size), float(self.grid_size), float(self.grid_height))
 
@@ -144,18 +147,33 @@ class RenderConfig:
     max_byte_steps: int = 4          # 2x2x2 DDA worst case = 3*2 - 2
 
     @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
+    @property
     def trace_budget(self) -> int:
         return self.max_top_steps + 32 * (self.max_brick_steps
                                           + self.max_byte_steps)
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Layout of ray-sharded rendering: rays split over ``num_devices``
+    ranks, the scene replicated (``parallel.render.make_mesh(cfg.mesh)``)."""
+
+    num_devices: int = 1
+
+
+@dataclass(frozen=True)
 class BrickmapConfig:
-    """Top-level bundle of the world, sky and render settings."""
+    """Top-level bundle of the world, sky, render and mesh settings, and
+    the run's random seed (the CLI's ``--seed``)."""
 
     grid: GridConfig = GridConfig()
     sky: SunSkyConfig = SunSkyConfig()
     render: RenderConfig = RenderConfig()
+    mesh: MeshConfig = MeshConfig()
+    seed: int = 0
 
     def replace(self, **kw) -> "BrickmapConfig":
         return dataclasses.replace(self, **kw)
@@ -170,6 +188,43 @@ def preset_single_brick() -> BrickmapConfig:
     )
 
 
+def preset_one_superchunk() -> BrickmapConfig:
+    """Config 2: one superchunk (16^3 bricks), 3-level LoD, sun/sky shading."""
+    return BrickmapConfig(
+        grid=GridConfig(grid_size=128, grid_height=128),
+        render=RenderConfig(width=512, height=512, max_bounces=1,
+                            max_top_steps=64),
+    )
+
+
+def preset_terrain() -> BrickmapConfig:
+    """Config 3: simplex terrain world, multi-superchunk, pool residency."""
+    return BrickmapConfig(
+        grid=GridConfig(grid_size=1024, grid_height=256),
+        render=RenderConfig(width=960, height=540, max_bounces=3,
+                            max_top_steps=512),
+    )
+
+
 def preset_full() -> BrickmapConfig:
     """Config 4: full path tracing at 1920x1080 on the 4096^2x512 world."""
     return BrickmapConfig(grid=GridConfig(), render=RenderConfig())
+
+
+def preset_inverse(num_devices: int = 1) -> BrickmapConfig:
+    """Config 5: inverse rendering, rays sharded across devices."""
+    return BrickmapConfig(
+        grid=GridConfig(grid_size=64, grid_height=64),
+        render=RenderConfig(width=128, height=128, max_bounces=0,
+                            max_top_steps=48),
+        mesh=MeshConfig(num_devices=num_devices),
+    )
+
+
+PRESETS = {
+    "single_brick": preset_single_brick,
+    "one_superchunk": preset_one_superchunk,
+    "terrain": preset_terrain,
+    "full": preset_full,
+    "inverse": preset_inverse,
+}

@@ -17,7 +17,10 @@
 // after another.  That is exact for kernels whose threads share nothing
 // (B2: `__shared__` becomes thread_local storage, so each host thread has
 // its own copy and a CUDA thread its own slot of it) and have no
-// __syncthreads or warp intrinsics; anything else does not compile here.
+// __syncthreads or warp intrinsics; anything else does not compile here
+// (the wave kernels, csrc/wave.cu, keep their block reduction under
+// __CUDA_ARCH__ and add with a plain atomic in this build, which
+// tests/test_torch_wave_host.py rehearses the same way).
 #pragma once
 
 #include <math.h>
@@ -62,6 +65,13 @@ using std::min;
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
+}
+
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
 }
 
 // The launch: grid.x blocks of block.x threads (1-D, as the port's kernels

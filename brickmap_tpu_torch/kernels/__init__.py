@@ -3,8 +3,9 @@
 Each kernel wrapper counts its launches in ``<wrapper>.launches``.  The
 timed ones (``traverse.trace``, ``record.record_segments``,
 ``extract.extract_fwd``, which reads the visited voxels from the pool
-fields, and ``extract.extract_bwd``, which adds their cotangents into the
-field gradient in place) also have an event
+fields, ``extract.extract_bwd``, which adds their cotangents into the
+field gradient in place, and the wave's ``wave.primary``,
+``wave.gather_clip`` and ``wave.shade``) also have an event
 hook: while ``<wrapper>.events`` is a list (it is ``None`` by default), each
 launch appends the (start, end) CUDA events recorded around it on the
 current stream, the kernel's own time without the wrapper's torch work.

@@ -23,6 +23,8 @@ from ..config import SunSkyConfig
 __all__ = ["sun", "sky", "sunsky", "sun_direction_from_position", "cone_extent"]
 
 _F32 = torch.float32
+# Rayleigh total scattering coefficients at the primary wavelengths.
+RAYLEIGH = (5.176821e-6, 1.2785348e-5, 2.8530756e-5)
 
 
 def sun_direction_from_position(sun_position, device="cuda") -> torch.Tensor:
@@ -79,8 +81,7 @@ def _common(view_dir, sun_dir, cfg: SunSkyConfig):
 
     sun_e = _sun_intensity(cos_sun_up, cfg)
 
-    rayleigh = torch.tensor([5.176821e-6, 1.2785348e-5, 2.8530756e-5],
-                            dtype=_F32, device=dev)
+    rayleigh = torch.tensor(RAYLEIGH, dtype=_F32, device=dev)
     mie = _total_mie(cfg, dev) * cfg.mie_coefficient
 
     zenith = torch.clamp(cos_up_view, min=0.0)

@@ -34,7 +34,7 @@ from ..config import (
 
 BIG = 1_000_000.0
 
-__all__ = ["aabb_clip", "trace_rays", "BIG"]
+__all__ = ["aabb_clip", "trace_rays", "trace_clipped_rays", "BIG"]
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -114,15 +114,26 @@ def trace_rays(origin, direction, index_volume, pool_words, pool_base,
     cells_read [CZ*CY*CX] / rows_read [P] (bool): the index words and brick
     rows that at least one ray read.
     """
-    dev = origin.device
-    n = origin.shape[0]
+    ok, tminn, clipped, entry_normal = aabb_clip(origin, direction, grid)
+    return trace_clipped_rays(clipped, direction, entry_normal, tminn, ok,
+                              index_volume, pool_words, pool_base,
+                              camera_brick_pos, grid, max_iters, use_ess)
+
+
+def trace_clipped_rays(clipped, direction, entry_normal, tminn, ok,
+                       index_volume, pool_words, pool_base, camera_brick_pos,
+                       grid: GridConfig, max_iters: int = 4096,
+                       use_ess: bool = True):
+    """:func:`trace_rays` after its :func:`aabb_clip`: the rays given as
+    the clip's outputs (clipped origins, directions, entry normals, tmin,
+    ok), the five inputs kernel B2's launcher reads.  Same result."""
+    dev = clipped.device
+    n = clipped.shape[0]
     eps = torch.tensor(grid.epsilon, dtype=_F32, device=dev)
     bsz = grid.brick_size
     cx_max, cy_max, cz_max = grid.cells, grid.cells, grid.cells_height
     s = grid.supergrid_cell_size
     camx, camy, camz = (int(c) for c in camera_brick_pos)
-
-    ok, tminn, clipped, entry_normal = aabb_clip(origin, direction, grid)
 
     ox, oy, oz = (clipped[:, k] / bsz for k in range(3))
     dx, dy, dz = (direction[:, k].to(_F32) for k in range(3))

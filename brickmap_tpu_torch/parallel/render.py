@@ -27,7 +27,7 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
-from ..config import BrickmapConfig
+from ..config import BrickmapConfig, MeshConfig
 from ..diff.render import l2_loss_and_grads
 from ..diff.sparse import l2_loss_and_grads_sparse
 from ..render.pathtrace import wave_for_indices
@@ -55,8 +55,11 @@ class Mesh:
         return self.rank >= 0
 
 
-def make_mesh(num_devices: int | None = None, device=None) -> Mesh:
-    """The first ``num_devices`` ranks of the world (all when None).
+def make_mesh(num_devices: int | MeshConfig | None = None,
+              device=None) -> Mesh:
+    """The first ``num_devices`` ranks of the world (all when None); a
+    :class:`~brickmap_tpu_torch.config.MeshConfig` (``cfg.mesh``) gives its
+    ``num_devices``.
 
     A collective: every rank of the world calls it (``dist.new_group``),
     those outside get a mesh with ``member`` False.  ``device`` defaults to
@@ -65,6 +68,8 @@ def make_mesh(num_devices: int | None = None, device=None) -> Mesh:
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "app.scaling.init_distributed first")
+    if isinstance(num_devices, MeshConfig):
+        num_devices = num_devices.num_devices
     world = dist.get_world_size()
     d = world if num_devices is None else num_devices
     if not 1 <= d <= world:

@@ -10,7 +10,8 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels (nvcc, all sources at once, rebuilt even where a
    build exists) and the native heightfield (g++); print the ptxas summary,
-   and fail if B1's, B2's or B3's build has a stack frame or spills;
+   and fail if B1's, B2's, B3's or W1-W3's build has a stack frame or
+   spills;
 3. kernel B1 (brick DDA) against its plain torch version, every output
    equal (``t`` included): 1M random rays at densities 0.12, 0.5 and 0.9,
    ``bench.py``'s 2M rays, origins around the brick, edge values of
@@ -38,9 +39,19 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    9-viewpoint benchmark at 1920x1080, 3 bounces (1 warm-up + 1 timed wave
    per view), with B2 held against its plain version at the main path's
    shape (view 0's primary rays) and timed there beside its bound, with
-   its SIMD efficiency and ptxas line.  Each wave must launch B2 at least 5
-   times (4 bounce traces + the final shadow pass) unless the plain version
-   finds that none of its primary rays hits;
+   its SIMD efficiency and ptxas line.  Then the wave kernels W1-W3 at
+   view 0's full shape (2,073,600 lanes in tile order): W1, W2 before each
+   of the wave's 5 traces, W3 after each (4 bounces and the final pass
+   through the tile permutation), each from the same state as its plain
+   version and equal to it (state, B2's inputs and outputs; NaN equal to
+   NaN; 0 mask flips), each timed alone beside its bound (W1, W2 at bounces
+   0 and 1, W3 at bounces 0 and 1 and the final pass).  Each wave must
+   launch B2 at least 5 times (4 bounce traces + the final shadow pass)
+   unless the plain version finds that none of its primary rays hits, and
+   W1, W2 and W3 at least once; no plain version may run.  Last, view 0's
+   wave through W1-W3 against the same wave with their plain versions
+   swapped in: rgb within rtol 1e-4 / atol 1e-5, count, requests, traced
+   and exhausted (0) equal;
 6. kernels B3 (segment recorder), B4f and B4b (the visited voxels' values
    read from the pool fields, and their cotangents added back with
    atomics) against their plain versions on the phase-4 terrain, resident
@@ -67,7 +78,8 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    benchmark``: view 0, 1920x1080, 3 bounces, queue 1024, segments from 16
    rows, 48 waves, each wave's requests serviced before the next).  B2 is
    held against its plain version on wave 0's primary rays over the cold
-   scene; every wave must launch B2, no plain traversal may run, no ray may
+   scene; every wave must launch B2 and W1-W3, no plain version may run, no
+   ray may
    exhaust its budget and no wave may upload more than 1024 bricks; the
    uploads must equal the resident counts and the loaded index words, no
    loaded brick may be unreachable (the reference's locality invariant), a
@@ -80,16 +92,18 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    ...])`` in this process (it builds phase 5's world itself), 1920x1080,
    3 bounces, view 0's camera orbiting a point 300 voxels ahead of it; a
    client thread fetches ``/frame.png`` and ``/stats.json`` from the served
-   page and posts one fly-camera move.  Three PNGs and ``frames`` 3, B2 in
-   every wave, no plain traversal, 0 exhausted, the post applied once and
-   followed by a film reset, and the trace file naming ``traverse_kernel``.
-   Then one view-0 wave under ``torch.profiler``: the device operations by
-   time and the device's idle share of the wave;
+   page and posts one fly-camera move.  Three PNGs and ``frames`` 3, B2 and
+   W1-W3 in every wave, no plain version, 0 exhausted, the post applied
+   once and followed by a film reset, and the trace file naming
+   ``traverse_kernel``.  Then one view-0 wave under ``torch.profiler``: its
+   kernel launches, device-to-host (synchronising) and pageable
+   host-to-device copies, the device operations by time and the device's
+   idle share of the wave;
 10. the sharded paths at world size 1 over NCCL: ``render_wave_sharded``
    equal to ``wave_for_indices`` on the same pixels and uniforms bit for
    bit; ``render_frame`` in 61,440-ray chunks equal to one
    ``render_wave`` with the same per-pixel uniforms (0 exhausted, the same
-   requests); ``inverse_train_step_sparse`` at 2,073,600 rays, K = 8 equal
+   requests; W1-W3 in every chunk, no plain version); ``inverse_train_step_sparse`` at 2,073,600 rays, K = 8 equal
    to ``l2_loss_and_grads_sparse`` (loss equal, gradients within 1e-6 of
    their largest value) through B3, B4f and B4b; ``run_scaling_benchmark``
    at one rank on the scaling CLI's 512^2 x 128 world at 512x288; then the
@@ -271,6 +285,64 @@ def check_equal(tag: str, got: dict, want: dict) -> None:
             fail(f"{tag}: {k} differs on {int(bad.sum())} rows")
 
 
+# Float operations a lane of the wave kernels does at the least (a libm
+# call counted as one): W1 the camera basis, jitter and disk (~70); W2 the
+# slab clip and entry normal (~60); W3 two sky evaluations, the cone and
+# hemisphere samples and the hit point (~300).  Bytes bind all three.
+W_OPS = {"W1": 70, "W2": 60, "W3": 300}
+
+
+def wave_bytes(kind: str, n: int, live: int) -> int:
+    """Bytes a wave kernel must move: W1 per lane reads idx, stratum (8 B
+    each), jitter, lens (8 each) and writes both rows of the ray buffers
+    (48), live (2), the position map (8), accum, sh_color (24), req_mask
+    (1), req_pos (12); W2 per ray reads its lane (8) and ray (24) and
+    writes the five inputs of B2 (41) and its row (4); W3 per lane reads
+    live (2), the extension ray (24), sh_color, accum (24), the request
+    (13) and its four uniforms (16) and writes the map (8), both rays
+    (48), live (2), sh_color, accum (24), the request (13), plus per live
+    ray its row (4) and B2's results (31); W3's final pass reads live,
+    sh_color, accum, the request and dst (55) and writes rgb, count, mask,
+    pos (29) and the map (8)."""
+    if kind == "W1":
+        return n * (32 + 95)
+    if kind == "W2":
+        return n * (32 + 45)
+    if kind == "W3":
+        return n * (79 + 95) + live * 35
+    return n * (55 + 37) + live * 35
+
+
+def state_rows_differ(a, b) -> int:
+    """Rows where two tensors differ (NaN equal to NaN)."""
+    import torch
+
+    diff = a != b
+    if a.is_floating_point():
+        diff &= ~(torch.isnan(a) & torch.isnan(b))
+    return int(diff.reshape(a.shape[0], -1).any(1).sum()) if a.dim() \
+        else int(diff)
+
+
+def alone_ms(wrapper, fn, reps: int) -> float:
+    """Mean ms of ``wrapper``'s kernel over ``reps`` calls of ``fn``, by
+    the CUDA events its hook records around each launch alone (``fn`` may
+    restore the kernel's inputs outside them)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    wrapper.events = []
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in wrapper.events) / len(
+            wrapper.events)
+    finally:
+        wrapper.events = None
+
+
 def record_bound(plain: dict, k: int, slots: bool):
     """B3's least time on these rays: per ray the inputs (clipped origin and
     direction 24 B, hit flag 1 B) and outputs (12 B per segment, 4 more with
@@ -303,7 +375,8 @@ def main() -> int:
         BRICK_FLAG_BITS, BRICK_UNLOADED_BIT, BRICK_LOD_BITS, preset_full, \
         preset_single_brick
     from brickmap_tpu_torch.kernels import brick as kbrick, build
-    from brickmap_tpu_torch.kernels import traverse as ktrav
+    from brickmap_tpu_torch.kernels import traverse as ktrav, wave as kwave
+    from brickmap_tpu_torch.ops import wave as owave
     from brickmap_tpu_torch.ops.traverse import trace_rays
     from brickmap_tpu_torch.render import pathtrace
     from brickmap_tpu_torch.render.camera import Camera, \
@@ -324,7 +397,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line}")
         if not native_ok[0]:
             fail("native heightfield (g++) did not build")
-        for name in ("brick", "traverse", "record"):
+        for name in ("brick", "traverse", "record", "wave"):
             if not ptxas_clean(name):
                 fail(f"{name}.cu: ptxas reports a stack frame or spills")
 
@@ -646,35 +719,192 @@ def main() -> int:
               f"{ptxas_line('traverse')}", flush=True)
         del got, want
 
-        # Count plain-version calls during the main path: there must be none.
-        plain_calls = {"B1": 0, "B2": 0}
+        # W1-W3 at the main path's shape: view 0's wave of 2,073,600 lanes
+        # in tile order, every stage on both sides from the same state,
+        # the kernel's and the plain version's outputs equal.
+        n = w * h
+        nb = cfg.render.max_bounces
+        u5 = draw_wave_uniforms(n, nb, gen, dev)
+        perm5 = pathtrace._tile_order(w, h, dev)
+        st, ref = owave.new_state(n, dev), owave.new_state(n, dev)
+        w_err = [0.0]
+        wrec = {}      # (kernel, shape) -> (ms, plain ms, bound ms, by)
 
-        def counting(mod, attr, key):
+        def w_equal(tag, got, want):
+            for k in want:
+                bad = state_rows_differ(got[k], want[k])
+                if bad:
+                    fail(f"{tag}: {k} differs on {bad} rows")
+                if got[k].is_floating_point():
+                    ok = ~torch.isnan(want[k])
+                    if bool(ok.any()):
+                        w_err[0] = max(w_err[0], float(
+                            (got[k][ok] - want[k][ok]).abs().max()))
+
+        def host_ms(fn, reps=2):
+            best = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                best.append((time.perf_counter() - t1) * 1e3)
+            return min(best)
+
+        def w_bound(kind, lanes, live=0):
+            return bound(wave_bytes(kind, lanes, live),
+                         lanes * W_OPS[kind[:2]])
+
+        kwave.primary(perm5, u5, arrays, w, h, st)
+        owave.primary_plain(perm5, u5, arrays, w, h, ref)
+        torch.cuda.synchronize()
+        w_equal("W1", st, ref)
+        wrec[("W1", "view 0")] = (
+            alone_ms(kwave.primary, lambda: kwave.primary(
+                perm5, u5, arrays, w, h, st), 5),
+            host_ms(lambda: owave.primary_plain(perm5, u5, arrays, w, h,
+                                                ref)), *w_bound("W1", n))
+        print(f"  W1 at {n} lanes: state equal to the plain version's "
+              f"(rays, live, map, accum, requests, counters)", flush=True)
+        flips = 0
+        for bounce in range(nb + 2):
+            final = bounce == nb + 1
+            lanes = torch.nonzero(st["live"]).squeeze(1)
+            m = lanes.shape[0]
+            inp = kwave.gather_clip(st["rays_o"], st["rays_d"], lanes,
+                                    cfg.grid, pos=st["pos"])
+            inp_p = owave.gather_clip_plain(ref["rays_o"], ref["rays_d"],
+                                            lanes, cfg.grid, pos=ref["pos"])
+            torch.cuda.synchronize()
+            keys = ("clipped", "dirs", "entry_normal", "tminn", "ok")
+            w_equal(f"W2 trace {bounce}", dict(zip(keys, inp), pos=st[
+                "pos"]), dict(zip(keys, inp_p), pos=ref["pos"]))
+            print(f"  W2 trace {bounce}: {m} rays; B2's five inputs and the "
+                  f"lanes' rows equal to aabb_clip's (plain)", flush=True)
+            shape = "final" if final else f"bounce {bounce}"
+            if bounce <= 1:
+                wrec[("W2", shape)] = (
+                    alone_ms(kwave.gather_clip, lambda: kwave.gather_clip(
+                        st["rays_o"], st["rays_d"], lanes, cfg.grid,
+                        pos=st["pos"]), 5),
+                    host_ms(lambda: owave.gather_clip_plain(
+                        ref["rays_o"], ref["rays_d"], lanes, cfg.grid,
+                        pos=ref["pos"])), *w_bound("W2", m))
+            res = ktrav.trace_clipped(inp, world, cam0.brick_position,
+                                      cfg.grid, budget)
+            del inp, inp_p
+            cone = None if final else u5["cone"][bounce]
+            hemi = None if final else u5["hemi"][bounce]
+            dst = perm5 if final else None
+            saved = {k: v.clone() for k, v in st.items()} \
+                if bounce <= 1 or final else None
+            out = kwave.shade(bounce, st, res, cone, hemi, sun, cfg, final,
+                              dst)
+            out_p = owave.shade_plain(bounce, ref, res, cone, hemi, sun, cfg,
+                                      final, dst)
+            torch.cuda.synchronize()
+            flips += state_rows_differ(st["live"], ref["live"]) \
+                + state_rows_differ(st["req_mask"], ref["req_mask"])
+            w_equal(f"W3 {shape}", st, ref)
+            if final:
+                w_equal("W3 final outputs", {
+                    "rgb": out[0], "count": out[1], "mask": out[2]["mask"],
+                    "pos": out[2]["pos"]}, {
+                    "rgb": out_p[0], "count": out_p[1],
+                    "mask": out_p[2]["mask"], "pos": out_p[2]["pos"]})
+            print(f"  W3 {shape}: state{' and outputs' if final else ''} "
+                  f"equal to the plain version's; traced "
+                  f"{int(st['counters'][0])}, exhausted "
+                  f"{int(st['counters'][1])}", flush=True)
+            if saved is not None:
+                tmp = {}
+
+                def restore():
+                    for k, v in saved.items():
+                        tmp[k] = v.clone()
+
+                def run_w3():
+                    restore()
+                    kwave.shade(bounce, tmp, res, cone, hemi, sun, cfg,
+                                final, dst)
+
+                def run_plain():
+                    restore()
+                    owave.shade_plain(bounce, tmp, res, cone, hemi, sun, cfg,
+                                      final, dst)
+                wrec[("W3", shape)] = (
+                    alone_ms(kwave.shade, run_w3, 5), host_ms(run_plain),
+                    *w_bound("W3" if not final else "W3f", n, m))
+                del tmp, saved
+            del res, out, out_p
+        if flips:
+            fail(f"W3: {flips} mask flips against the plain version")
+        for (kind, shape), (ms, pms, bms, by) in wrec.items():
+            print(f"  {kind} alone at {shape}: {ms:.4f} ms (plain "
+                  f"{pms:.3f} ms), bound {bms:.4f} ms by {by} "
+                  f"({100 * bms / ms:.1f}%)", flush=True)
+        print(f"  W1-W3: 0 mask flips, max |kernel - plain| {w_err[0]}; "
+              f"ptxas {ptxas_line('wave')}", flush=True)
+        del st, ref, u5
+
+        # Count plain-version calls during the main path: there must be none.
+        plain_calls = {"B1": 0, "B2": 0, "W1": 0, "W2": 0, "W3": 0}
+
+        def counting(mod, attr, key, calls=None):
+            """Count calls of ``mod.attr`` in ``calls`` (by default the
+            current phase's ``plain_calls``); returns what ``restore``
+            puts back."""
             f = getattr(mod, attr)
+            calls = plain_calls if calls is None else calls
 
             def wrapped(*a, **k):
-                plain_calls[key] += 1
+                calls[key] += 1
                 return f(*a, **k)
             setattr(mod, attr, wrapped)
-            return f
+            return mod, attr, f
 
-        orig_b2 = counting(ktrav, "trace_rays", "B2")
-        orig_b1 = counting(kbrick, "intersect_brick_plain", "B1")
-        waves = []        # per wave: (view, B2 launches)
-        primaries = []    # the rays of the wave's first trace call
+        def count_wave_plain(calls):
+            """Count the plain W1-W3 the wrappers would run: the saved
+            (module, name, function) triples to put back."""
+            return [counting(kwave, "primary_plain", "W1", calls),
+                    counting(kwave, "gather_clip_plain", "W2", calls),
+                    counting(kwave, "shade_plain", "W3", calls)]
+
+        def restore(saved):
+            for mod, attr, f in saved:
+                setattr(mod, attr, f)
+
+        def w_launches():
+            return [kwave.primary.launches, kwave.gather_clip.launches,
+                    kwave.shade.launches]
+
+        saved_plain = [counting(ktrav, "trace_rays", "B2"),
+                       counting(ktrav, "trace_clipped_rays", "B2"),
+                       counting(kbrick, "intersect_brick_plain", "B1")]
+        saved_plain += count_wave_plain(plain_calls)
+        waves = []        # per wave: (view, B2 launches, W launches)
+        primaries = []    # the wave's raw primary rays
         orig_wave = pathtrace.render_wave
-        orig_trace = pathtrace.trace
+        orig_trace_live = pathtrace._trace_live
 
         def counted_wave(*a, **k):
             before = ktrav.trace.launches
+            w_before = w_launches()
             primaries.clear()
-            ktrav.trace.events.clear()    # B2 launches of this wave only
+            for f in (ktrav.trace, kwave.primary, kwave.gather_clip,
+                      kwave.shade):
+                f.events.clear()          # launches of this wave only
             out = orig_wave(*a, **k)
             launches = ktrav.trace.launches - before
+            wl = [x - y for x, y in zip(w_launches(), w_before)]
+            if min(wl) < 1:
+                fail(f"a wave did not launch every wave kernel: W1-W3 {wl}")
             traced = int(out[2]["traced_rays"])
             if launches < 5:
                 # Only a wave whose primary rays all miss may stop early:
                 # hold that against the plain version on those rays.
+                # The plain trace clips the raw rows itself (aabb_clip),
+                # so this check does not rest on W2.
                 o, d = primaries[0]
                 ref = trace_rays(o, d, world.index_volume, world.pool_words,
                                  world.pool_base, a[2], cfg.grid,
@@ -687,63 +917,76 @@ def main() -> int:
                 print(f"  a wave with {launches} B2 launch(es): the plain "
                       f"version finds 0 hits among its {o.shape[0]} primary "
                       f"rays", flush=True)
-            waves.append((len(images), launches))
+            waves.append((len(images), launches, wl))
             return out
 
-        def first_trace(*a, **k):
+        def first_trace(st, *a, **k):
+            # W1 writes lane i's primary ray at row i; copies, since W3
+            # rewrites the rows in place.
             if not primaries:
-                primaries.append((a[0], a[1]))
-            return orig_trace(*a, **k)
+                n = st["accum"].shape[0]
+                primaries.append((st["rays_o"][:n].clone(),
+                                  st["rays_d"][:n].clone()))
+            return orig_trace_live(st, *a, **k)
 
         pathtrace.render_wave = counted_wave
-        pathtrace.trace = first_trace
+        pathtrace._trace_live = first_trace
         # View -> image statistics of its timed wave; while a view renders,
         # len(images) is its index.
         images = {}
 
         def on_wave(vi, rgb):
-            ms, calls = timer.take()["B2"]
+            t = timer.take()
             images[vi] = (float(rgb.mean()), float(rgb.std()),
-                          bool(torch.isfinite(rgb).all()), ms, calls)
+                          bool(torch.isfinite(rgb).all()), t)
 
         def on_view(results):
             r = results[-1]
-            m, s, finite, b2, calls = images[r["viewpoint"]]
+            m, s, finite, t = images[r["viewpoint"]]
+            b2, calls = t["B2"]
             print(f"  view {r['viewpoint']}: {r['avg_ms']:.2f} ms, "
                   f"{r['rays']} rays traced, {r['mrays_per_s']:.3f} Mrays/s,"
                   f" exhausted {r['exhausted']}, B2 kernel {b2:.3f} ms in "
                   f"{calls} launches ({100 * b2 / r['avg_ms']:.1f}% of the "
-                  f"wave), image mean {m:.5f} std {s:.5f}, finite {finite}",
-                  flush=True)
+                  f"wave), " + ", ".join(
+                      f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in t.items()
+                      if k != "B2") + f"; image mean {m:.5f} std {s:.5f}, "
+                  f"finite {finite}", flush=True)
 
-        ktrav.trace.launches = 0
-        kbrick.trace_single_brick.launches = 0
+        for f in (ktrav.trace, kbrick.trace_single_brick, kwave.primary,
+                  kwave.gather_clip, kwave.shade):
+            f.launches = 0
         cams = benchmark.benchmark_cameras()
-        with benchmark.KernelTimes(B2=ktrav.trace) as timer:
-            out = benchmark.run_forward_benchmark(
-                world, cfg, waves_per_view=1, warmup_waves=1, verbose=False,
-                on_view=on_view, on_wave=on_wave)
+        try:
+            with benchmark.KernelTimes(
+                    B2=ktrav.trace, W1=kwave.primary, W2=kwave.gather_clip,
+                    W3=kwave.shade) as timer:
+                out = benchmark.run_forward_benchmark(
+                    world, cfg, waves_per_view=1, warmup_waves=1,
+                    verbose=False, on_view=on_view, on_wave=on_wave)
+        finally:
+            pathtrace.render_wave = orig_wave
+            pathtrace._trace_live = orig_trace_live
+            restore(saved_plain)
         b2_launches = ktrav.trace.launches
-        pathtrace.render_wave = orig_wave
-        pathtrace.trace = orig_trace
-        ktrav.trace_rays = orig_b2
-        kbrick.intersect_brick_plain = orig_b1
+        w5_launches = w_launches()
 
-        per_wave = [n for _, n in waves]
+        per_wave = [n for _, n, _ in waves]
         print(f"  aggregate {out['mrays_per_s']:.3f} Mrays/s over "
               f"{out['total_rays']} rays in {out['total_seconds']:.3f} s on "
               f"{out['device']}; B2 launches {b2_launches}, per wave "
-              f"{per_wave}")
+              f"{per_wave}; W1, W2, W3 launches {w5_launches}, per wave "
+              f"{[x for _, _, x in waves]}")
         if out["total_exhausted"] != 0:
             fail(f"{out['total_exhausted']} rays exhausted")
-        if plain_calls["B1"] or plain_calls["B2"]:
+        if any(plain_calls.values()):
             fail(f"plain versions ran on the main path: {plain_calls}")
         # Views 0-2 look down on the terrain from inside the world: each of
         # their waves traces every bounce and the final shadow pass.
-        for vi, n in waves:
+        for vi, n, _ in waves:
             if vi <= 2 and n < 5:
                 fail(f"view {vi}: a wave launched B2 {n} times, not >= 5")
-        for vi, (m, s, finite, _, _) in images.items():
+        for vi, (m, s, finite, _) in images.items():
             if not finite:
                 fail(f"view {vi}: image not finite")
             # Viewpoint 3 of the reference's script sits below the terrain
@@ -760,6 +1003,52 @@ def main() -> int:
             "launches": b2_launches, "max_abs_err": b2_err[0], "ms": b2_ms,
             "plain_ms": b2_plain_ms, "bound_ms": b2_bound, "bound_by": b2_by,
             "library_ms": None}
+        # W1-W3 have no Pallas twin: "replaces" names the JAX function XLA
+        # fuses; each at its first shape of view 0's wave.
+        for kind, name, shape, replaces, launches in (
+                ("W1", "primary (W1)", "view 0",
+                 "brickmap_tpu/render/pathtrace.py:293", w5_launches[0]),
+                ("W2", "gather_clip (W2)", "bounce 0",
+                 "brickmap_tpu/ops/traverse.py:73", w5_launches[1]),
+                ("W3", "shade (W3)", "bounce 0",
+                 "brickmap_tpu/render/pathtrace.py:519", w5_launches[2])):
+            ms, pms, bms, by = wrec[(kind, shape)]
+            records[kind] = {
+                "name": name, "route": "cuda",
+                "source": "brickmap_tpu_torch/csrc/wave.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": w_err[0], "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+        # The same wave through the kernels and with the plain W1-W3
+        # swapped in (B2 the kernel in both), on the same uniforms.
+        u = draw_wave_uniforms(w * h, nb, gen, dev)
+        got = pathtrace.render_wave(world, arrays, cam0.brick_position, cfg,
+                                    w, h, uniforms=u)
+        kernels = kwave.primary, kwave.gather_clip, kwave.shade
+        kwave.primary, kwave.gather_clip, kwave.shade = \
+            owave.primary_plain, owave.gather_clip_plain, owave.shade_plain
+        try:
+            want = pathtrace.render_wave(world, arrays, cam0.brick_position,
+                                         cfg, w, h, uniforms=u)
+        finally:
+            kwave.primary, kwave.gather_clip, kwave.shade = kernels
+        torch.cuda.synchronize()
+        err = float((got[0] - want[0]).abs().max())
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+        same = {k: bool(torch.equal(got[2][k], want[2][k]))
+                for k in ("mask", "pos", "traced_rays", "exhausted_rays")}
+        if not (torch.equal(got[1], want[1]) and all(same.values())
+                and int(got[2]["exhausted_rays"]) == 0):
+            fail(f"the wave through W1-W3 differs from the plain one: "
+                 f"count {torch.equal(got[1], want[1])}, {same}, exhausted "
+                 f"{int(got[2]['exhausted_rays'])}")
+        print(f"  view 0's wave through W1-W3 against the plain W1-W3 "
+              f"swapped in: rgb max |diff| {err} (equal: "
+              f"{torch.equal(got[0], want[0])}), count, mask, pos, "
+              f"{int(got[2]['traced_rays'])} traced and 0 exhausted equal",
+              flush=True)
+        del got, want, u
 
     # ------------------------------------------------------------------
     from brickmap_tpu_torch.diff import sparse as dsparse
@@ -914,8 +1203,7 @@ def main() -> int:
         launches = {"B3": krec.record_segments.launches,
                     "B4f": kext.extract_fwd.launches,
                     "B4b": kext.extract_bwd.launches}
-        krec.record_segments_plain, kext.extract_fwd_plain, \
-            kext.extract_bwd_plain = saved
+        restore(saved)
         frame = out7.pop("frame")
         print(f"  active bricks A = {out7['active_bricks']} (the JAX "
               f"package's record of these rays: 138541), rays with "
@@ -1200,7 +1488,7 @@ def main() -> int:
         gen8 = torch.Generator(device=dev)
         gen8.manual_seed(0)
         u = draw_wave_uniforms(w * h, cfg.render.max_bounces, gen8, dev)
-        perm_np, inv_np = pathtrace._tile_permutation(w, h)
+        perm_np, _ = pathtrace._tile_permutation(w, h)
         o8, d8 = primary_rays_from_arrays(
             u["stratum"], u["jitter"], u["lens"], arrays,
             torch.from_numpy(perm_np.copy()).to(dev), w, h)
@@ -1214,22 +1502,12 @@ def main() -> int:
         records["B2"]["max_abs_err"] = b2_err[0]
         del cold, csc, got, want, o8, d8, u
 
-        # What the wave's per-call copies of the tile permutation and its
-        # inverse cost (render_wave copies both from pageable memory).
-        def perm_copies():
-            torch.from_numpy(perm_np.copy()).to(dev)
-            torch.from_numpy(inv_np.copy()).to(dev)
-            torch.cuda.synchronize()
-
-        perm_copies()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            perm_copies()
-        perm_ms = (time.perf_counter() - t0) * 1e3 / 3
-
-        plain_calls = {"B2": 0}
-        orig_b2 = counting(ktrav, "trace_rays", "B2")
-        launches8, requests8, b2_ms8 = [], [], []
+        plain_calls = {"B2": 0, "W1": 0, "W2": 0, "W3": 0}
+        saved8 = [counting(ktrav, "trace_rays", "B2"),
+                  counting(ktrav, "trace_clipped_rays", "B2"),
+                  *count_wave_plain(plain_calls)]
+        launches8, requests8, b2_ms8, w8 = [], [], [], []
+        w_last = [w_launches()]
         # Host stalls that a wave's timings may hide: the garbage
         # collector's passes (ms since the last wave) and the caching
         # allocator's retries (it frees its cache and allocates again).
@@ -1249,6 +1527,9 @@ def main() -> int:
         def on_wave8(i, row, reqs):
             b2, n = timer8.take()["B2"]
             launches8.append(n)
+            now = w_launches()
+            w8.append([x - y for x, y in zip(now, w_last[0])])
+            w_last[0] = now
             b2_ms8.append(b2)
             requests8.append(reqs)
             stall = (f"gc {gc_ms[0]:.3f} ms, allocator retries "
@@ -1265,6 +1546,7 @@ def main() -> int:
                   f"; {stall}", flush=True)
 
         ktrav.trace.launches = 0
+        w_last[0] = w_launches()
         gc.callbacks.append(gc_timer)
         try:
             with benchmark.KernelTimes(B2=ktrav.trace) as timer8:
@@ -1274,8 +1556,8 @@ def main() -> int:
                     device=dev, on_wave=on_wave8)
         finally:
             gc.callbacks.remove(gc_timer)
+            restore(saved8)
         b2_launches8 = ktrav.trace.launches
-        ktrav.trace_rays = orig_b2
         mgr = out8.pop("manager")
         rows8 = out8.pop("per_wave")
         wave_ms = [r["wave_ms"] for r in rows8]
@@ -1289,18 +1571,18 @@ def main() -> int:
               f"{sum(r['pull_ms'] for r in rows8):.3f} ms, plan "
               f"{sum(r['plan_ms'] for r in rows8):.3f} ms, install "
               f"{sum(r['install_ms'] for r in rows8):.3f} ms, "
-              f"{sum(r['grew'] for r in rows8)} growths, perm/inv copies "
-              f"{perm_ms:.3f} ms a wave "
-              f"({100 * perm_ms * waves8 / sum(wave_ms):.1f}% of the waves) "
-              f"on {out8['device']}", flush=True)
+              f"{sum(r['grew'] for r in rows8)} growths; W1, W2, W3 "
+              f"launches per wave {w8} on {out8['device']}", flush=True)
         sc8 = mgr.device_scene()
         print(f"  device bytes: streaming scene {sc8.nbytes} (pool "
               f"{sc8.pool_words.numel() * 4}) against the resident "
               f"{world.nbytes}", flush=True)
         if b2_launches8 != sum(launches8) or min(launches8) < 1:
             fail(f"a streaming wave did not launch B2: {launches8}")
-        if plain_calls["B2"]:
-            fail(f"the plain traversal ran in the streaming waves: "
+        if min(min(x) for x in w8) < 1:
+            fail(f"a streaming wave did not launch W1-W3: {w8}")
+        if any(plain_calls.values()):
+            fail(f"plain versions ran in the streaming waves: "
                  f"{plain_calls}")
         if any(r["exhausted"] for r in rows8):
             fail(f"exhausted rays: {[r['exhausted'] for r in rows8]}")
@@ -1436,10 +1718,11 @@ def main() -> int:
         orig_apply = cli._apply_camera_input
 
         def counted_wave9(*a, **k):
-            before = ktrav.trace.launches
+            before, w_before = ktrav.trace.launches, w_launches()
             out = orig_wave(*a, **k)
             waves9.append((ktrav.trace.launches - before,
-                           int(out[2]["exhausted_rays"])))
+                           int(out[2]["exhausted_rays"]),
+                           [x - y for x, y in zip(w_launches(), w_before)]))
             return out
 
         def logged_init(*a, **k):
@@ -1450,8 +1733,10 @@ def main() -> int:
             events9.append("camera_input")
             return orig_apply(*a, **k)
 
-        plain_calls = {"B2": 0}
-        orig_b2 = counting(ktrav, "trace_rays", "B2")
+        plain_calls = {"B2": 0, "W1": 0, "W2": 0, "W3": 0}
+        saved9 = [counting(ktrav, "trace_rays", "B2"),
+                  counting(ktrav, "trace_clipped_rays", "B2"),
+                  *count_wave_plain(plain_calls)]
         pathtrace.render_wave, pathtrace.film_init = counted_wave9, \
             logged_init
         cli._apply_camera_input = logged_apply
@@ -1471,7 +1756,7 @@ def main() -> int:
                 orig_init
             cli._apply_camera_input = orig_apply
             preview.PreviewServer = orig_server
-            ktrav.trace_rays = orig_b2
+            restore(saved9)
         b2_launches9 = ktrav.trace.launches
         line = stdout9.getvalue().strip().splitlines()[-1]
         print(f"  render: rc {rc}, {loop_s:.2f} s; {line}")
@@ -1479,8 +1764,9 @@ def main() -> int:
         pngs = sorted(f for f in os.listdir(out_dir)
                       if f.startswith("view_") and f.endswith(".png"))
         print(f"  B2 launches {b2_launches9}, per wave "
-              f"{[n for n, _ in waves9]}, exhausted "
-              f"{[e for _, e in waves9]}; PNGs {pngs}; film events "
+              f"{[n for n, _, _ in waves9]}, exhausted "
+              f"{[e for _, e, _ in waves9]}; W1, W2, W3 per wave "
+              f"{[x for _, _, x in waves9]}; PNGs {pngs}; film events "
               f"{events9}; served: frame.png {len(got9.get('png', b''))} "
               f"bytes, stats {got9.get('stats')}, POST /camera -> "
               f"{got9.get('post')}", flush=True)
@@ -1488,12 +1774,14 @@ def main() -> int:
             fail(f"the viewer run: rc {rc}, {rec9}")
         if pngs != ["view_000.png", "view_001.png", "view_002.png"]:
             fail(f"the viewer wrote {pngs}")
-        if len(waves9) != 6 or min(n for n, _ in waves9) < 1 \
-                or b2_launches9 != sum(n for n, _ in waves9):
+        if len(waves9) != 6 or min(n for n, _, _ in waves9) < 1 \
+                or b2_launches9 != sum(n for n, _, _ in waves9):
             fail(f"a viewer wave did not launch B2: {waves9}")
-        if plain_calls["B2"]:
-            fail(f"the plain traversal ran in the viewer: {plain_calls}")
-        if any(e for _, e in waves9):
+        if min(min(x) for _, _, x in waves9) < 1:
+            fail(f"a viewer wave did not launch W1-W3: {waves9}")
+        if any(plain_calls.values()):
+            fail(f"plain versions ran in the viewer: {plain_calls}")
+        if any(e for _, e, _ in waves9):
             fail(f"exhausted rays in the viewer: {waves9}")
         if th9.is_alive() or not got9.get("png", b"").startswith(
                 b"\x89PNG") or got9.get("post") != 204 \
@@ -1536,11 +1824,35 @@ def main() -> int:
             torch.cuda.synchronize()
             wave_ms = (time.perf_counter() - t1) * 1e3
         busy_ms, span_ms, n_act = device_busy(prof9)
+        kinds = {"kernel": 0, "DtoH": 0, "HtoD pageable": 0, "HtoD": 0,
+                 "other copy": 0, "memset": 0}
+        api = {}
+        for e in prof9.events():
+            name = e.name
+            if e.device_type == DeviceType.CUDA:
+                if name.startswith("Memset"):
+                    kinds["memset"] += 1
+                elif not name.startswith("Memcpy"):
+                    kinds["kernel"] += 1
+                elif "DtoH" in name:
+                    kinds["DtoH"] += 1
+                elif "HtoD" in name:
+                    kinds["HtoD pageable" if "Pageable" in name
+                          else "HtoD"] += 1
+                else:
+                    kinds["other copy"] += 1
+            elif name.startswith(("cuda", "cu")) and "Synchronize" in name:
+                api[name] = api.get(name, 0) + 1
         print(f"  one profiled wave (view 0): {wave_ms:.3f} ms host, "
               f"{n_act} device activities over {span_ms:.3f} ms, "
               f"{busy_ms:.3f} ms busy -> device idle "
-              f"{1 - busy_ms / wave_ms:.3f} of the wave; top device "
-              f"operations (ms, share of the wave, calls):")
+              f"{1 - busy_ms / wave_ms:.3f} of the wave; kernel launches "
+              f"{kinds['kernel']}, synchronising copies (device to host) "
+              f"{kinds['DtoH']}, pageable host-to-device copies "
+              f"{kinds['HtoD pageable']}, other host-to-device "
+              f"{kinds['HtoD']}, other copies {kinds['other copy']}, "
+              f"memsets {kinds['memset']}; synchronise calls {api}; top "
+              f"device operations (ms, share of the wave, calls):")
 
         def dev_us(e):
             return getattr(e, "self_device_time_total",
@@ -1563,6 +1875,17 @@ def main() -> int:
             f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms ({e.count}x)"
             for e in ops), flush=True)
         del prof9, evs
+        # The wave's launch and copy budget: at most 150 kernels, at most
+        # 12 synchronising copies, no pageable host-to-device copy.
+        if not 0 < kinds["kernel"] <= 150:
+            fail(f"the profiled wave shows {kinds['kernel']} kernel "
+                 f"launches, not 1 to 150")
+        if kinds["DtoH"] > 12:
+            fail(f"the profiled wave makes {kinds['DtoH']} device-to-host "
+                 f"copies, more than 12")
+        if kinds["HtoD pageable"]:
+            fail(f"the profiled wave makes {kinds['HtoD pageable']} "
+                 f"pageable host-to-device copies")
 
     # ------------------------------------------------------------------
     from brickmap_tpu_torch.app import scaling
@@ -1577,18 +1900,21 @@ def main() -> int:
         n = w * h
         scaling.init_single_process(dev)
         try:
-            mesh = par.make_mesh(1)
+            mesh = par.make_mesh(cfg.mesh)
             print(f"  process group: backend {dist.get_backend()}, world "
                   f"{dist.get_world_size()}, mesh {mesh.size} on "
                   f"{mesh.device}")
             cam0 = benchmark.benchmark_cameras()[0]
             arrays = camera_arrays_for(cam0, sun, w, h, dev)
             u = draw_wave_uniforms(n, cfg.render.max_bounces, gen, dev)
-            plain_calls = {"B2": 0, "B3": 0, "B4f": 0, "B4b": 0}
+            plain_calls = {"B2": 0, "B3": 0, "B4f": 0, "B4b": 0, "W1": 0,
+                           "W2": 0, "W3": 0}
             saved10 = [counting(ktrav, "trace_rays", "B2"),
+                       counting(ktrav, "trace_clipped_rays", "B2"),
                        counting(krec, "record_segments_plain", "B3"),
                        counting(kext, "extract_fwd_plain", "B4f"),
-                       counting(kext, "extract_bwd_plain", "B4b")]
+                       counting(kext, "extract_bwd_plain", "B4b"),
+                       *count_wave_plain(plain_calls)]
 
             def host_s(fn):
                 torch.cuda.synchronize()
@@ -1598,11 +1924,13 @@ def main() -> int:
                 return out, time.perf_counter() - t1
 
             ktrav.trace.launches = 0
+            w0 = w_launches()
             (rgb_s, cnt_s, req_s), sharded_s = host_s(
                 lambda: par.render_wave_sharded(
                     mesh, world, arrays, cam0.brick_position, cfg, w, h,
                     uniforms=u))
             b2_sharded = ktrav.trace.launches
+            w_sharded = [x - y for x, y in zip(w_launches(), w0)]
             (rgb_i, cnt_i, req_i), indices_s = host_s(
                 lambda: pathtrace.wave_for_indices(
                     world, torch.arange(n, device=dev), arrays,
@@ -1616,9 +1944,10 @@ def main() -> int:
             print(f"  render_wave_sharded, view 0 at {w}x{h}: "
                   f"{sharded_s * 1e3:.3f} ms (wave_for_indices "
                   f"{indices_s * 1e3:.3f} ms), B2 launches {b2_sharded}, "
+                  f"W1, W2, W3 {w_sharded}, "
                   f"{int(req_s['traced_rays'])} rays traced, equal to "
                   f"wave_for_indices bit for bit: {same}")
-            if b2_sharded < 5 or not same:
+            if b2_sharded < 5 or min(w_sharded) < 1 or not same:
                 fail("the sharded wave differs from wave_for_indices, or "
                      "skipped B2")
             del rgb_s, cnt_s, req_s, rgb_i, cnt_i, req_i
@@ -1640,21 +1969,25 @@ def main() -> int:
             us = [{k: v[..., c] if k in ("cone", "hemi") else v[c]
                    for k, v in u_px.items()} for c in chunks]
             ktrav.trace.launches = 0
+            w0 = w_launches()
             (rgb_f, cnt_f, traced_f, reqs_f, exh_f), frame_s = host_s(
                 lambda: pathtrace.render_frame(
                     world, arrays, cam0.brick_position, cfg, w, h,
                     rays_per_chunk=chunk, chunk_uniforms=us, queue_size=n))
             b2_frame = ktrav.trace.launches
+            w_frame = [x - y for x, y in zip(w_launches(), w0)]
             same = torch.equal(rgb_f, rgb_w) and torch.equal(cnt_f, cnt_w)
             print(f"  render_frame, view 0 in {len(chunks)} chunks of "
                   f"{chunk}: {frame_s * 1e3:.3f} ms (render_wave "
                   f"{wave_s * 1e3:.3f} ms), B2 launches {b2_frame}, "
-                  f"{traced_f} rays traced "
+                  f"W1, W2, W3 {w_frame}, {traced_f} rays traced "
                   f"(the wrapped chunk's repeats included), exhausted "
                   f"{exh_f}, {len(reqs_f)} requests (render_wave: "
                   f"{len(reqs_w)}); rgb and count equal to render_wave's "
                   f"on the same per-pixel uniforms: {same}")
             if b2_frame < len(chunks) or exh_f or not same \
+                    or w_frame[0] != len(chunks) \
+                    or min(w_frame[1:]) < len(chunks) \
                     or set(reqs_f) != set(reqs_w):
                 fail("render_frame differs from render_wave")
             del rgb_w, cnt_w, req_w, rgb_f, cnt_f, u, u_px, us
@@ -1731,8 +2064,7 @@ def main() -> int:
                 fail(f"plain versions ran on the sharded paths: "
                      f"{plain_calls}")
         finally:
-            ktrav.trace_rays, krec.record_segments_plain, \
-                kext.extract_fwd_plain, kext.extract_bwd_plain = saved10
+            restore(saved10)
             dist.destroy_process_group()
 
         dense = benchmark.run_dense_inverse_benchmark(dev)
@@ -1763,7 +2095,8 @@ def main() -> int:
                 fail(f"{r['name']}: {k} is not finite")
     print(smi_line())
     print(json.dumps({"kernels": [records[k] for k in
-                                  ("B1", "B2", "B3", "B4f", "B4b")]}))
+                                  ("B1", "B2", "B3", "B4f", "B4b", "W1",
+                                   "W2", "W3")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

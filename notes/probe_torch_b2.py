@@ -34,7 +34,7 @@ sub-DDA loop is the short one with the most float compares).
 
 Then, on the 4096^2 x 512 world built on the card, at four shapes: view 0's
 primary rays (1920x1080, seed 0), the bounce-1 and the final shadow trace
-of view 0's first wave (captured by wrapping ``pathtrace.trace``), and the
+of view 0's first wave (captured by wrapping ``kernels.wave.gather_clip``), and the
 cold streaming world's wave-0 primaries (``StreamingScene`` before any
 upload, in the wave's tile order, requests on):
 
@@ -158,7 +158,8 @@ def main() -> int:
     from brickmap_tpu_torch import scene as scene_mod
     from brickmap_tpu_torch.app import benchmark
     from brickmap_tpu_torch.config import preset_full
-    from brickmap_tpu_torch.kernels import build, traverse as ktrav
+    from brickmap_tpu_torch.kernels import build, traverse as ktrav, \
+        wave as kwave
     from brickmap_tpu_torch.ops.traverse import trace_rays
     from brickmap_tpu_torch.render import pathtrace
     from brickmap_tpu_torch.render.camera import camera_arrays_for, \
@@ -254,19 +255,19 @@ def main() -> int:
                                       arrays, torch.arange(w * h, device=dev),
                                       w, h)
     calls = []
-    orig_trace = pathtrace.trace
+    orig_gather = kwave.gather_clip
 
-    def capture(o, d, sc, cb, g, steps):
-        calls.append((o.clone(), d.clone(), tuple(int(c) for c in cb),
-                      steps))
-        return orig_trace(o, d, sc, cb, g, steps)
+    def capture(rays_o, rays_d, lanes, g, off=None, pos=None):
+        if off is None:     # a trace's rays (rescue passes not included)
+            calls.append((rays_o[lanes].clone(), rays_d[lanes].clone()))
+        return orig_gather(rays_o, rays_d, lanes, g, off, pos)
 
-    pathtrace.trace = capture
+    kwave.gather_clip = capture
     gen.manual_seed(0)
     pathtrace.render_wave(world, arrays, cam0.brick_position, cfg, w, h,
                           generator=gen)
     torch.cuda.synchronize()
-    pathtrace.trace = orig_trace
+    kwave.gather_clip = orig_gather
     print(f"view 0's first wave: {len(calls)} trace calls of "
           f"{[c[0].shape[0] for c in calls]} rays", flush=True)
     cold = StreamingScene(world, grid, queue_size=1024, device=dev)
@@ -392,14 +393,15 @@ def main() -> int:
         del copies, want
 
     phase5 = None
+    orig_trace = ktrav.trace_clipped
     if not args.no_phase5:
         # Phase 5's waves (a warm-up and a timed one a view, their seeds),
         # each B2 launch of the wave made by build ``tag`` between CUDA
         # events: B2 as the wave leaves the L2 for it.
         def wave_trace(tag, events):
-            def tr(o, d, sc, cb, g, steps):
-                inputs, out = ktrav.launch_inputs(o, d, g)
-                n = o.shape[0]
+            def tr(inputs, sc, cb, g, steps):
+                out = ktrav._outputs(inputs[0].shape[0], inputs[0].device)
+                n = inputs[0].shape[0]
                 if n:
                     e0, e1 = (torch.cuda.Event(enable_timing=True)
                               for _ in range(2))
@@ -415,7 +417,7 @@ def main() -> int:
 
         def phase5_waves(tag):
             events, images = [], []
-            pathtrace.trace = wave_trace(tag, events)
+            ktrav.trace_clipped = wave_trace(tag, events)
             try:
                 for vi, cm in enumerate(benchmark.benchmark_cameras()):
                     arr = camera_arrays_for(cm, sun, w, h, dev)
@@ -426,7 +428,7 @@ def main() -> int:
                             world, arr, cm.brick_position, cfg, w, h,
                             generator=g)[0])
             finally:
-                pathtrace.trace = orig_trace
+                ktrav.trace_clipped = orig_trace
             torch.cuda.synchronize()
             return sum(a.elapsed_time(b) for a, b in events), len(events), \
                 images

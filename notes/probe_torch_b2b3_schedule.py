@@ -13,7 +13,7 @@ the 4096^2 x 512 world built on the card:
 
 * the shapes: view 0's primary rays (1920x1080, seed 0), the bounce-1 and
   the final shadow trace of view 0's first wave (captured by wrapping
-  ``pathtrace.trace``), and phase 7's frame for B3 (2,073,600 rays, K = 8);
+  ``kernels.wave.gather_clip``), and phase 7's frame for B3 (2,073,600 rays, K = 8);
 * SIMD efficiency of the launch-order schedule at each shape, from the
   kernel's own per-ray step counts (B2's ``ray_iters``; B3's steps from
   its plain version, which it equals): sum of steps over the sum, over
@@ -250,7 +250,7 @@ def main() -> int:
     from brickmap_tpu_torch.app import benchmark
     from brickmap_tpu_torch.config import preset_full
     from brickmap_tpu_torch.kernels import build, record as krec, \
-        traverse as ktrav
+        traverse as ktrav, wave as kwave
     from brickmap_tpu_torch.ops.record import record_segments_plain
     from brickmap_tpu_torch.ops.traverse import aabb_clip, trace_rays
     from brickmap_tpu_torch.render import pathtrace
@@ -397,18 +397,19 @@ def main() -> int:
                                       arrays, torch.arange(w * h, device=dev),
                                       w, h)
     calls = []
-    orig_trace = pathtrace.trace
+    orig_gather = kwave.gather_clip
 
-    def capture(o, d, *a, **k):
-        calls.append((o.clone(), d.clone()))
-        return orig_trace(o, d, *a, **k)
+    def capture(rays_o, rays_d, lanes, g, off=None, pos=None):
+        if off is None:     # a trace's rays (rescue passes not included)
+            calls.append((rays_o[lanes].clone(), rays_d[lanes].clone()))
+        return orig_gather(rays_o, rays_d, lanes, g, off, pos)
 
-    pathtrace.trace = capture
+    kwave.gather_clip = capture
     gen.manual_seed(0)
     pathtrace.render_wave(world, arrays, cam0.brick_position, cfg, w, h,
                           generator=gen)
     torch.cuda.synchronize()
-    pathtrace.trace = orig_trace
+    kwave.gather_clip = orig_gather
     print(f"view 0's first wave: {len(calls)} trace calls of "
           f"{[c[0].shape[0] for c in calls]} rays", flush=True)
     cam = tuple(int(c) for c in cam0.brick_position)

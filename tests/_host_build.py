@@ -1,0 +1,39 @@
+"""A CUDA source of the port built with g++ through ``csrc/host_shim.h``:
+the kernel's logic on the CPU, every float operation rounded once (no FMA
+contraction), driven by the host tests before the card runs it."""
+
+import os
+import re
+import shutil
+import subprocess
+
+from brickmap_tpu_torch.kernels.build import CSRC
+
+
+def host_source(name: str) -> str:
+    """``csrc/<name>.cu`` as plain C++ for ``host_shim.h``: without the CUDA
+    runtime header, each ``<<<...>>>`` launch a ``launch_`` call."""
+    with open(os.path.join(CSRC, f"{name}.cu")) as f:
+        src = f.read()
+    src = src.replace("#include <cuda_runtime.h>", "")
+    return re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);",
+                  lambda m: f"launch_({m.group(2)}, [&] {{ "
+                            f"{m.group(1)}({m.group(3)}); }});",
+                  src, flags=re.S)
+
+
+def host_build(name: str, out_dir: str) -> str:
+    """Build ``csrc/<name>.cu`` into ``out_dir`` and return the library's
+    path."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found")
+    cpp = os.path.join(out_dir, f"{name}_host.cpp")
+    with open(cpp, "w") as f:
+        f.write(host_source(name))
+    lib = os.path.join(out_dir, f"lib{name}_host.so")
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-include", os.path.join(CSRC, "host_shim.h"),
+                    "-I", CSRC, "-o", lib, cpp, "-pthread"],
+                   check=True, capture_output=True, text=True)
+    return lib

@@ -14,10 +14,7 @@ there is no g++.
 """
 
 import ctypes
-import os
-import re
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -26,8 +23,9 @@ import torch
 from brickmap_tpu_torch import scene as tscene
 from brickmap_tpu_torch.config import BRICK_FLAG_BITS, BRICK_LOD_BITS, \
     BRICK_UNLOADED_BIT, GridConfig, i32
-from brickmap_tpu_torch.kernels import build, traverse as ktrav
+from brickmap_tpu_torch.kernels import traverse as ktrav
 from brickmap_tpu_torch.ops.traverse import trace_rays
+from _host_build import host_build
 
 torch.set_num_threads(2)
 
@@ -38,32 +36,12 @@ KEYS = ("hit", "t", "normal", "request", "request_pos", "exhausted",
         "resume_t", "ray_iters")
 
 
-def host_source(path: str) -> str:
-    """A ``.cu`` file as plain C++ for ``host_shim.h``: without the CUDA
-    runtime header, each ``<<<...>>>`` launch a ``launch_`` call."""
-    src = open(path).read()
-    src = src.replace("#include <cuda_runtime.h>", "")
-    return re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);",
-                  lambda m: f"launch_({m.group(2)}, [&] {{ "
-                            f"{m.group(1)}({m.group(3)}); }});",
-                  src, flags=re.S)
-
-
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("needs g++")
-    out = tmp_path_factory.mktemp("b2host")
-    cpp = out / "traverse_host.cpp"
-    cpp.write_text(host_source(os.path.join(build.CSRC, "traverse.cu")))
-    lib = out / "libtraverse_host.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-include",
-                    os.path.join(build.CSRC, "host_shim.h"), "-I",
-                    build.CSRC, "-o", str(lib), str(cpp), "-pthread"],
-                   check=True, capture_output=True, text=True)
-    so = ctypes.CDLL(str(lib))
+    so = ctypes.CDLL(host_build(
+        "traverse", str(tmp_path_factory.mktemp("b2host"))))
     ktrav._bind(so)
     return so
 
