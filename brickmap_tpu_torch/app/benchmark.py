@@ -591,22 +591,25 @@ def run_sparse_inverse_benchmark(scene, grid, *, width: int = 1920,
     then SPARSE_ADAM_STEPS Adam steps with the ``inverse --sparse`` update
     and clip (the update alone timed apart as ``adam_update_s``).
 
-    On the card, the CUDA events of every launch of kernels B3, B4f and B4b
-    give ``kernels[stage][name] = (ms, launches)`` for the stages "prepass",
-    "warm-up", "uncached", "cache fill", "cached" and "adam".  The result
-    names the device.  ``frame`` holds the step's inputs after the Adam
-    steps (rays, ``background``, ``target``, ``cellmap``, ``occupancy``,
-    ``albedo``) and its filled ``seg_cache``, for checks of the caller.
+    On the card, the CUDA events of every launch of kernels B3, R1, B4f, R2
+    and B4b give ``kernels[stage][name] = (ms, launches)`` for the stages
+    "prepass", "warm-up", "uncached", "cache fill", "cached" and "adam".
+    The result names the device.  ``frame`` holds the step's inputs after
+    the Adam steps (rays, ``background``, ``target``, ``cellmap``,
+    ``occupancy``, ``albedo``) and its filled ``seg_cache``, for checks of
+    the caller.
     """
     from ..diff.optim import adam_step, make_adam
     from ..diff.sparse import l2_loss_and_grads_sparse
-    from ..kernels import extract as kext, record as krec
+    from ..kernels import extract as kext, record as krec, replay as krep
 
     dev = scene.device
     cuda = dev.type == "cuda"
     n = width * height
     times = KernelTimes(**({"B3": krec.record_segments,
+                            "R1": krep.segment_geom,
                             "B4f": kext.extract_fwd,
+                            "R2": krep.composite_sse,
                             "B4b": kext.extract_bwd} if cuda else {}))
     kernels: dict = {}
     current = [None]

@@ -3,7 +3,7 @@ compositing along DDA rays.
 
 The port of ``brickmap_tpu/diff/render.py``.  A ray visits voxels front to
 back in exact DDA order (the 3-way merge of per-axis crossing times,
-:func:`~brickmap_tpu_torch.diff.sparse._merge_offsets`); each visited voxel
+:func:`~brickmap_tpu_torch.ops.replay.merge_offsets`); each visited voxel
 contributes ``w_i = T_{i-1} occ_i``, ``T_i = T_{i-1} (1 - occ_i)``, and the
 pixel is ``sum_i w_i albedo_i + T_N bg``.  Gradients w.r.t. per-voxel
 ``occupancy`` and ``albedo`` come from autograd through one flat gather and
@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .sparse import _clip01, _composite_core, _merge_offsets
+from ..ops.replay import merge_offsets
+from .sparse import _clip01, _composite_core
 
 __all__ = ["composite_rays", "l2_loss_and_grads"]
 
@@ -68,8 +69,8 @@ def composite_rays(origin, direction, occupancy, albedo, background,
     pos, stepv, tmax, tdelta = _dda_state(start, direction)
     tdabs = torch.abs(tdelta)
 
-    offs = _merge_offsets(tmax, tdabs, direction != 0.0,
-                          max_steps - 1, max_steps)      # [C, V, 3]
+    offs = merge_offsets(tmax, tdabs, direction != 0.0,
+                         max_steps - 1, max_steps)       # [C, V, 3]
     pk = pos[:, None, :] + stepv[:, None, :] * offs
     inb = ((pk >= 0) & (pk < ext)).all(dim=2) & valid[:, None]
     pc = torch.minimum(torch.clamp(pk, min=0), ext - 1)

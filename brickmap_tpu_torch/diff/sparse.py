@@ -14,15 +14,18 @@ The port of ``brickmap_tpu/diff/sparse.py``.  Two phases:
    has an analytic, division-free backward (:class:`_CompositeCore`).
 
 The loss path (:func:`l2_loss_and_grads_sparse`) replays at brick-row
-granularity over the voxel-interleaved fields ``field4 [P*512, 4]``: per
-(ray, segment), kernel B4f reads the visited voxels' four values straight
-from the segment's pool row (one 16-byte load each), and kernel B4b adds
-their cotangents into the field gradient in place (one 16-byte atomic
-each).  No ``[4*512]`` row per segment is gathered, and no row gradient is
-written or index-added.  Rays run in slices of at most 16,384; a slice's
-largest buffers are its segment geometry and the ``[C*K, 4*nvox]`` values
-and their gradient (46 MB each at K = 8).  The voxel-granular replay
-(``row_replay=False``) is the oracle the row replay is held against.
+granularity over the voxel-interleaved fields ``field4 [P*512, 4]``, in
+slices of at most 16,384 rays, each four kernel launches
+(:func:`_row_chunk_grad`): R1 computes every segment's pool slot and
+visited voxels, B4f reads their four values straight from the pool (one
+16-byte load each), R2 composites each ray and takes the analytic backward
+of its squared error, and B4b adds the cotangents into the field gradient
+in place (one 16-byte atomic each).  No ``[4*512]`` row per segment is
+gathered, and no row gradient is written or index-added.  A slice's largest
+buffers are the ``[C*K, 4*nvox]`` values and their cotangents (46 MB each
+at K = 8).  The voxel-granular replay (``row_replay=False``, autograd
+through :class:`_CompositeCore`) is the oracle the row replay is held
+against.
 
 Left out of the JAX module: the ``traced`` branches and ``_scan_grad_acc``
 (they serve ``jit`` and ``shard_map``) and the bucket rounding of the live
@@ -39,70 +42,20 @@ from .. import bits
 from ..config import BRICK_INDEX_BITS, BRICK_LOADED_BIT, GridConfig, i32
 from ..kernels.extract import extract_bwd, extract_field, extract_fwd
 from ..kernels.record import record_segments
+from ..kernels.replay import composite_sse, segment_geom
+from ..ops.replay import ray_sse_plain
+from ..ops.replay import segment_visits as _segment_geom
 
 __all__ = ["cell_pool_map", "pool_fields_from_bitmask", "composite_sparse",
            "l2_loss_and_grads_sparse"]
 
 _F32, _I32 = torch.float32, torch.int32
-_TIE = 1e-3   # ABSOLUTE time window of _merge_offsets (brick-t units)
 
 
 def _clip01(x):
     """``jnp.clip(x, 0, 1)`` with its gradient: half the cotangent at a bound
     (``torch.maximum``/``minimum`` split ties as ``lax.max``/``min`` do)."""
     return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
-
-
-def _merge_offsets(tmax, tdabs, has_axis, nj: int, nvox: int):
-    """Per-axis crossing counts after k merged DDA steps, k = 0..nvox-1.
-
-    The visit sequence of a 3-axis DDA is the 3-way merge of the per-axis
-    crossing times ``t_a(j) = tmax_a + j * tdabs_a``.  The rank of axis a's
-    j-th crossing is j plus the crossings of the other axes ordered before
-    it; ties break z over y over x (the walk's ``_sel_axis`` priority) by
-    counting a tied crossing of b as earlier exactly when b outranks a.  A
-    tie is two crossings within an ABSOLUTE window of 1e-3 in brick-t units
-    (the periods are >= 1): a per-axis window let a near-tie fall inside one
-    axis's window and outside the other's, giving two crossings one rank.
-    ``offs_a[k] = #{j : rank_a(j) < k}`` comes from a binary search over j.
-
-    Args: tmax [C,3], tdabs [C,3] (|1/d|), has_axis [C,3] bool (d != 0).
-    Returns offs int32 [C, nvox, 3].
-    """
-    c = tmax.shape[0]
-    tie = torch.tensor(_TIE, dtype=_F32, device=tmax.device)
-
-    def count(b, T, inclusive: bool):
-        """#{i >= 0 : t_b(i) < T} (<= T when ``inclusive``), clipped; within
-        ``tie`` of T counts as equal time."""
-        db = torch.where(tdabs[:, b:b + 1] == 0.0, 1.0, tdabs[:, b:b + 1])
-        r = (T - tmax[:, b:b + 1]) / db
-        e = tie / db
-        n = torch.floor(r + e).to(_I32) + 1 if inclusive \
-            else torch.ceil(r - e).to(_I32)
-        n = torch.where(has_axis[:, b:b + 1], n, 0)
-        return torch.clamp(n, 0, nj)
-
-    ks = torch.arange(nvox, dtype=_I32, device=tmax.device)[None, :]
-    offs_ax = []
-    for a in range(3):
-        others = [b for b in range(3) if b != a]
-
-        def rank(j, a=a, others=others):
-            t = tmax[:, a:a + 1] + j.to(_F32) * tdabs[:, a:a + 1]
-            r = j + count(others[0], t, others[0] > a) \
-                + count(others[1], t, others[1] > a)
-            return torch.where(has_axis[:, a:a + 1] & (j < nj), r, 2 ** 30)
-
-        lo = torch.zeros((c, nvox), dtype=_I32, device=tmax.device)
-        hi = torch.full((c, nvox), nj, dtype=_I32, device=tmax.device)
-        for _ in range((nj + 1).bit_length()):
-            mid = (lo + hi) >> 1
-            below = rank(mid) < ks
-            lo = torch.where(below, mid + 1, lo)
-            hi = torch.where(below, hi, mid)
-        offs_ax.append(lo)
-    return torch.stack(offs_ax, dim=2)
 
 
 def cell_pool_map(scene, grid: GridConfig) -> torch.Tensor:
@@ -128,66 +81,6 @@ def pool_fields_from_bitmask(scene):
     p = words.shape[0]
     occ = bits.dense_from_brick_words(words).reshape(p, 512).to(_F32)
     return occ, torch.ones((p, 512, 3), dtype=_F32, device=words.device)
-
-
-def _segment_geom(oc, dc, cells, nds, ncodes, enorm, cellmap,
-                  grid: GridConfig, k_segments: int):
-    """Per-segment geometry: brick slot + the in-brick DDA's visit sequence.
-
-    Pure geometry (voxel.cuh:79-133): every visited voxel's index comes from
-    register arithmetic, no occupancy reads.  The JAX function loops over the
-    K segments; here the [C, K] segments are one batch of C*K rows, each
-    computed exactly as there.
-
-    Returns (slots [C,K] i32 (0 where invalid), lin [C,K,nvox] i32 in-brick
-    voxel ids, mask [C,K,nvox] bool step-valid).
-    """
-    c, K = cells.shape[0], k_segments
-    eps = torch.tensor(grid.epsilon, dtype=_F32, device=oc.device)
-    bsz = grid.brick_size
-    nvox = 3 * bsz - 2
-    cellmap_flat = cellmap.reshape(-1)
-    cy, cx = cellmap.shape[1], cellmap.shape[2]
-
-    def rows3(a):
-        return a[:, None, :].expand(c, K, 3).reshape(c * K, 3)
-
-    oc, dc, enorm = rows3(oc), rows3(dc), rows3(enorm)
-    cell = cells.reshape(-1)
-    nd = nds.reshape(-1)
-    ncode = ncodes.reshape(-1)
-    valid = cell >= 0
-    cxp = cell & 0x3FF
-    cyp = (cell >> 10) & 0x3FF
-    czp = (cell >> 20) & 0x3FF
-    flat = (czp * cy + cyp) * cx + cxp
-    slot = cellmap_flat[torch.clamp(flat, 0, cellmap_flat.shape[0] - 1)]
-    valid = valid & (slot >= 0)
-    slot = torch.where(valid, slot, 0)
-
-    # In-brick DDA from the nudged entry point (voxel.cuh:224).
-    nrm = torch.stack([torch.where(ncode == a, -torch.sign(dc[:, a]), 0.0)
-                       for a in range(3)], 1)
-    nrm = torch.where((ncode >= 0)[:, None], nrm, enorm)
-    so = (oc + dc * nd[:, None]) * bsz - nrm * eps
-    pg = torch.trunc(so).to(_I32)
-    stepv = torch.sign(dc).to(_I32)
-    rd = torch.where(dc == 0.0, 0.0, 1.0 / dc)
-    # Crossing times in the global frame of `so`; only the position is
-    # reduced to brick-local coordinates (C trunc-mod, voxel.cuh:93).
-    cb = torch.where(dc > 0, pg + 1.0, pg.to(_F32))
-    tmax = torch.where(dc != 0.0, (cb - so) * rd, 1e6)
-    p = torch.where(pg >= 0, pg % bsz, -((-pg) % bsz))
-    tdelta = torch.abs(rd)
-
-    offs = _merge_offsets(tmax, tdelta, dc != 0.0, nvox - 1, nvox)
-    pk = p[:, None, :] + stepv[:, None, :] * offs         # [C*K, nvox, 3]
-    inb = ((pk >= 0) & (pk < bsz)).all(dim=2)
-    mask = valid[:, None] & inb
-    lin = torch.clamp(pk[..., 0] + pk[..., 1] * bsz + pk[..., 2] * bsz * bsz,
-                      0, bsz ** 3 - 1)
-    return slot.reshape(c, K), lin.reshape(c, K, nvox), \
-        mask.reshape(c, K, nvox)
 
 
 def _segment_gidx(oc, dc, cells, nds, ncodes, enorm, cellmap,
@@ -365,41 +258,34 @@ def _chunk_grad_body(o_cells, direction, cells, nd, ncode, enorm, cellmap,
 
 
 def _row_chunk_grad(o_cells, direction, cells, nd, ncode, enorm, cellmap,
-                    sse_acc, dfield_acc, field4, background, target,
-                    grid: GridConfig, k_segments: int):
-    """One slice's SSE + gradients at brick-row granularity.
+                    dfield_acc, field4, background, target,
+                    grid: GridConfig):
+    """One slice's per-ray SSE [C], its gradient added into ``dfield_acc``.
 
-    ``field4`` is [P*512, 4] (voxel-interleaved), ``dfield_acc`` matches.
-    B4f reads the visited voxels' values (:func:`~brickmap_tpu_torch.
-    kernels.extract.extract_fwd`), which take the gradient; B4b adds it
-    into ``dfield_acc`` in place (:func:`~brickmap_tpu_torch.kernels.
-    extract.extract_bwd`)."""
-    c = o_cells.shape[0]
-    k = k_segments
-    nvox = 3 * grid.brick_size - 2
-    slots, lin, mask = _segment_geom(o_cells, direction, cells, nd, ncode,
-                                     enorm, cellmap, grid, k_segments)
-    slots = slots.reshape(-1)
-    # Invalid steps must extract 0 (not voxel 0's value): poison their lin.
-    lin2 = torch.where(mask, lin, -1).reshape(c * k, nvox)
-    vals = extract_fwd(field4, slots, lin2).requires_grad_()  # [C*K, 4*nvox]
-    with torch.enable_grad():
-        occ = vals[:, :nvox].reshape(c, k * nvox)
-        alb = [vals[:, (1 + ch) * nvox:(2 + ch) * nvox].reshape(c, k * nvox)
-               for ch in range(3)]
-        occ_v = torch.where(mask.reshape(c, k * nvox), _clip01(occ), 0.0)
-        rgb, _ = _composite_core3(occ_v, *alb, background)
-        sse = torch.sum((rgb - target) ** 2)
-        sse.backward()
-    extract_bwd(dfield_acc, slots, lin2, vals.grad)
-    return sse_acc + sse.detach(), dfield_acc
+    Four launches at brick-row granularity over the ``cells``/``nd``/
+    ``ncode`` [C, K] segments: R1 (:func:`~brickmap_tpu_torch.kernels.
+    replay.segment_geom`) gives each segment's slot and visited voxels, B4f
+    (:func:`~brickmap_tpu_torch.kernels.extract.extract_fwd`) their values
+    from ``field4`` [P*512, 4] (voxel-interleaved), R2 (:func:`~brickmap_
+    tpu_torch.kernels.replay.composite_sse`) each ray's SSE and the values'
+    cotangents, and B4b (:func:`~brickmap_tpu_torch.kernels.extract.
+    extract_bwd`) adds those into ``dfield_acc`` in place."""
+    slots, lin2 = segment_geom(o_cells, direction, cells, nd, ncode, enorm,
+                               cellmap, grid)
+    vals = extract_fwd(field4, slots, lin2)              # [C*K, 4*nvox]
+    sse, dvals = composite_sse(vals, lin2, background, target)
+    extract_bwd(dfield_acc, slots, lin2, dvals)
+    return sse
 
 
 def _row_scan_grads(o_cells, direction, cells, nd, ncode, enorm, cellmap,
                     field4, background, target, grid: GridConfig,
                     k_segments: int, chunk: int):
     """Whole-frame row-granular gradients: a loop over ``chunk``-ray slices
-    carrying (sse, dfield) accumulators.
+    adding into one field gradient.  Returns (sse, dfield); sse is the
+    rays' SSEs summed by one ``torch.sum`` in ray order, a fixed order, so
+    a step through the kernels and one through their plain versions give
+    the same loss.
 
     K tiers: the caller sorts rays by descending segment count, so each
     slice runs at the smallest K of (2, 4, K) that covers its rays; a slice
@@ -410,20 +296,20 @@ def _row_scan_grads(o_cells, direction, cells, nd, ncode, enorm, cellmap,
     counts = (cells >= 0).sum(dim=1)
     per_slice = F.pad(counts, (0, (-n) % chunk)).reshape(-1, chunk)
     maxima = per_slice.amax(dim=1).tolist()
-    sse = torch.zeros((), dtype=_F32, device=field4.device)
+    sses = []
     dfield = torch.zeros_like(field4)
     for i, mx in enumerate(maxima):
         sl = slice(i * chunk, (i + 1) * chunk)
         tier = sum(mx > t for t in thresholds)
         if tier == 0:
-            sse = sse + torch.sum((background[sl] - target[sl]) ** 2)
+            sses.append(ray_sse_plain(background[sl], target[sl]))
             continue
         keff = keffs[tier - 1]
-        sse, dfield = _row_chunk_grad(
+        sses.append(_row_chunk_grad(
             o_cells[sl], direction[sl], cells[sl, :keff], nd[sl, :keff],
-            ncode[sl, :keff], enorm[sl], cellmap, sse, dfield, field4,
-            background[sl], target[sl], grid, keff)
-    return sse, dfield
+            ncode[sl, :keff], enorm[sl], cellmap, dfield, field4,
+            background[sl], target[sl], grid))
+    return torch.sum(torch.cat(sses)), dfield
 
 
 def _page_sort(origin, direction, background, target, grid: GridConfig):

@@ -8,7 +8,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["encode_png", "write_png", "to_uint8"]
+__all__ = ["encode_png", "write_png", "write_ppm", "to_uint8"]
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -39,3 +39,12 @@ def write_png(path: str, img: np.ndarray) -> None:
     """Write [H, W, 3] image (float 0-1 or uint8) as an 8-bit RGB PNG."""
     with open(path, "wb") as f:
         f.write(encode_png(img))
+
+
+def write_ppm(path: str, img: np.ndarray) -> None:
+    """Write [H, W, 3] image (float 0-1 or uint8) as a binary PPM (P6)."""
+    arr = img if img.dtype == np.uint8 else to_uint8(img)
+    h, w, _ = arr.shape
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(arr.tobytes())

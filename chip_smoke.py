@@ -64,16 +64,21 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
 7. the training path: the sparse inverse-rendering step on the phase-5
    world, 1920x1080 = 2,073,600 rays, K = 8 (``run_sparse_inverse_
    benchmark``: active-brick pre-pass, an uncached and a cached step, 3 Adam
-   steps).  B3, B4f and B4b must each launch, no plain version may run,
-   no ray may exhaust its budget, the loss must be finite and fall and the
-   gradients finite and not all zero.  Then one uncached step through the
-   kernels is held against one with their plain versions swapped in (loss
-   equal, gradients within 1e-6 of their largest value), B3 against its
-   plain version on the frame's rays (with its SIMD efficiency and ptxas
-   line) and B4f/B4b on the first 131,072-row
-   slice of the step's seg_cache, each timed there beside its bound and a
-   PyTorch call; one slice of the replay is split by part and profiled for
-   the device's idle share, and must run no index_select or index_add_;
+   steps).  B3, R1, B4f, R2 and B4b must each launch, R1/B4f/R2/B4b once
+   a 16,384-ray slice in every step, no plain version may run, no ray may
+   exhaust its budget, the loss must be finite and fall and the gradients
+   finite and not all zero.  Then one uncached step through the kernels is
+   held against one with their plain versions swapped in (loss equal,
+   gradients within 1e-6 of their largest value), B3 against its plain
+   version on the frame's rays (with its SIMD efficiency and ptxas line),
+   and R1, B4f, R2 and B4b on the first 16,384-ray slice of the step's
+   seg_cache at K = 8 (R1 also on its K = 2 and 4 column cuts, R2 also on
+   random values with occupancies at 0, 1 and outside [0, 1]; all equal
+   bit for bit except B4b, within 1e-6), each timed there, L2 cold, beside
+   its bound and, for B4f/B4b, a PyTorch call; one slice is timed by part
+   and profiled: its host ms, device busy ms and idle share, at most 6
+   kernel launches and no cumprod, addcmul, index_select or index_add_
+   kernel;
 8. streaming: a cold start on the phase-5 world (``run_streaming_
    benchmark``: view 0, 1920x1080, 3 bounces, queue 1024, segments from 16
    rows, 48 waves, each wave's requests serviced before the next).  B2 is
@@ -105,11 +110,13 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    ``render_wave`` with the same per-pixel uniforms (0 exhausted, the same
    requests; W1-W3 in every chunk, no plain version); ``inverse_train_step_sparse`` at 2,073,600 rays, K = 8 equal
    to ``l2_loss_and_grads_sparse`` (loss equal, gradients within 1e-6 of
-   their largest value) through B3, B4f and B4b; ``run_scaling_benchmark``
+   their largest value) through B3, R1, B4f, R2 and B4b;
+   ``run_scaling_benchmark``
    at one rank on the scaling CLI's 512^2 x 128 world at 512x288; then the
    dense compositor's fwd+bwd Mrays/s (``run_dense_inverse_benchmark``)
    and the sparse step on the 1024^2 x 256 world
-   (``run_sparse_inverse_benchmark_small``, bench.py's small-world stage).
+   (``run_sparse_inverse_benchmark_small``, bench.py's small-world stage;
+   B3, R1, B4f, R2 and B4b must each launch).
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -290,6 +297,19 @@ def check_equal(tag: str, got: dict, want: dict) -> None:
 # slab clip and entry normal (~60); W3 two sky evaluations, the cone and
 # hemisphere samples and the hit point (~300).  Bytes bind all three.
 W_OPS = {"W1": 70, "W2": 60, "W3": 300}
+# Operations of the replay kernels at the least, counted where the data
+# needs them.  R1 a valid segment: the slot (~10), the nudged entry, DDA
+# set-up and tie windows of 3 axes (~60), and for each of 3 axes x 22 steps
+# a 5-step binary search (4 each: add, shift, compare, select) and the
+# voxel id and bounds (4): 1,584 + 70; and R1_RANK_OPS a crossing's rank on
+# an axis the ray moves along (its time, 3; two crossing counts of 8:
+# subtract, divide, add, round, convert, select, 2 clamps; 2 adds and a
+# select).  R2 a valid step: forward clip and mask 3, weight 1, colour 6,
+# transmittance 2; backward s 5, cotangent 2, suffix 4, weight 1, albedo
+# cotangents 3, clip's gradient 4.
+R1_OPS = 1654
+R1_RANK_OPS = 22
+R2_STEP_OPS = 31
 
 
 def wave_bytes(kind: str, n: int, live: int) -> int:
@@ -1053,9 +1073,12 @@ def main() -> int:
     # ------------------------------------------------------------------
     from brickmap_tpu_torch.diff import sparse as dsparse
     from brickmap_tpu_torch.kernels import extract as kext, record as krec
+    from brickmap_tpu_torch.kernels import replay as krep
     from brickmap_tpu_torch.ops.extract import extract_bwd_plain, \
         extract_fwd_plain, field_index
     from brickmap_tpu_torch.ops.record import record_segments_plain
+    from brickmap_tpu_torch.ops.replay import composite_sse_plain, \
+        segment_geom_plain
 
     b4_err = [0.0, 0.0]     # B4f, B4b: max |kernel - plain| over the checks
 
@@ -1192,17 +1215,19 @@ def main() -> int:
                "1920x1080 rays, K = 8"):
         K = benchmark.SPARSE_K
         nvox = 3 * cfg.grid.brick_size - 2
-        plain_calls = {"B3": 0, "B4f": 0, "B4b": 0}
+        plain_calls = {"B3": 0, "R1": 0, "B4f": 0, "R2": 0, "B4b": 0}
         saved = [counting(krec, "record_segments_plain", "B3"),
+                 counting(krep, "segment_geom_plain", "R1"),
                  counting(kext, "extract_fwd_plain", "B4f"),
+                 counting(krep, "composite_sse_plain", "R2"),
                  counting(kext, "extract_bwd_plain", "B4b")]
-        krec.record_segments.launches = 0
-        kext.extract_fwd.launches = 0
-        kext.extract_bwd.launches = 0
+        train_kernels = {"B3": krec.record_segments,
+                         "R1": krep.segment_geom, "B4f": kext.extract_fwd,
+                         "R2": krep.composite_sse, "B4b": kext.extract_bwd}
+        for f in train_kernels.values():
+            f.launches = 0
         out7 = benchmark.run_sparse_inverse_benchmark(world, cfg.grid)
-        launches = {"B3": krec.record_segments.launches,
-                    "B4f": kext.extract_fwd.launches,
-                    "B4b": kext.extract_bwd.launches}
+        launches = {k: f.launches for k, f in train_kernels.items()}
         restore(saved)
         frame = out7.pop("frame")
         print(f"  active bricks A = {out7['active_bricks']} (the JAX "
@@ -1226,6 +1251,18 @@ def main() -> int:
             fail(f"a kernel of the training path did not launch: {launches}")
         if any(plain_calls.values()):
             fail(f"plain versions ran on the training path: {plain_calls}")
+        # A replay slice is R1 -> B4f -> R2 -> B4b: each of the four
+        # launches once a slice of 16,384 live rays, in every step.
+        per_step = -(-out7["live_rays"] // 16384)
+        step_counts = {st: {k: per[k][1] for k in ("R1", "B4f", "R2",
+                                                   "B4b")}
+                       for st, per in out7["kernels"].items()
+                       if st in ("warm-up", "uncached", "cache fill",
+                                 "cached")}
+        print(f"  replay launches a step ({per_step} slices): {step_counts}")
+        if any(set(c.values()) != {per_step} for c in step_counts.values()):
+            fail(f"a step did not launch R1, B4f, R2 and B4b once a slice "
+                 f"({per_step}): {step_counts}")
         if out7["exhausted"]:
             fail(f"{out7['exhausted']} rays exhausted the record budget")
         losses = out7["losses"]
@@ -1236,13 +1273,15 @@ def main() -> int:
             fail("gradients not finite, or all zero")
 
         # The whole step against the plain versions on the same inputs (the
-        # fields after the Adam steps): one uncached step through B3, B4f
-        # and B4b, one with their plain versions swapped in.  B4b's atomics
-        # and the plain version's index_add_ sum in run-dependent orders on
-        # the card, so gradients agree to 1e-6 of their largest value; the
-        # loss takes no atomics and must be equal.
+        # fields after the Adam steps): one uncached step through B3, R1,
+        # B4f, R2 and B4b, one with their plain versions swapped in.  B4b's
+        # atomics and the plain version's index_add_ sum in run-dependent
+        # orders on the card, so gradients agree to 1e-6 of their largest
+        # value; the loss (each ray's SSE from R2, summed by one torch.sum)
+        # takes no atomics and must be equal.
         o7, d7 = frame["origins"], frame["dirs"]
-        kernel_fns = (dsparse.record_segments, dsparse.extract_fwd,
+        kernel_fns = (dsparse.record_segments, dsparse.segment_geom,
+                      dsparse.extract_fwd, dsparse.composite_sse,
                       dsparse.extract_bwd)
 
         def full_step():
@@ -1259,17 +1298,20 @@ def main() -> int:
 
         loss_k, (go_k, ga_k), step_k_s, n_k = full_step()
         dsparse.record_segments = record_segments_plain
+        dsparse.segment_geom = segment_geom_plain
         dsparse.extract_fwd = extract_fwd_plain
+        dsparse.composite_sse = composite_sse_plain
         dsparse.extract_bwd = extract_bwd_plain
         try:
             loss_p, (go_p, ga_p), step_p_s, n_p = full_step()
         finally:
-            dsparse.record_segments, dsparse.extract_fwd, \
+            dsparse.record_segments, dsparse.segment_geom, \
+                dsparse.extract_fwd, dsparse.composite_sse, \
                 dsparse.extract_bwd = kernel_fns
         grad_errs = [(float((gk - gp).abs().max()), float(gp.abs().max()))
                      for gk, gp in ((go_k, go_p), (ga_k, ga_p))]
         print(f"  whole uncached step, kernels {step_k_s:.3f} s (launches "
-              f"B3/B4f/B4b {n_k}) against the plain versions "
+              f"B3/R1/B4f/R2/B4b {n_k}) against the plain versions "
               f"{step_p_s:.3f} s (launches {n_p}): loss {loss_k!r} vs "
               f"{loss_p!r}; max |dgrad| (max |grad|) occupancy "
               f"{grad_errs[0][0]:.3g} ({grad_errs[0][1]:.6g}), albedo "
@@ -1308,18 +1350,65 @@ def main() -> int:
               f"outputs equal", flush=True)
         del got, want
 
-        # B4f/B4b on the first 131,072-row slice of the replay: the first
-        # 16,384 count-sorted live rays of the timed steps' seg_cache.
+        # R1, B4f, R2 and B4b on the first slice of the replay: the first
+        # 16,384 count-sorted live rays of the timed steps' seg_cache at
+        # K = 8 (131,072 rows).
         c7 = 16384
         sl_in = tuple(a[:c7] for a in frame["seg_cache"]["geo"])
         cellmap_a = frame["cellmap"]
         field4 = dsparse._pack_field(frame["occupancy"], frame["albedo"])
         del frame, o7, d7
-        slots, lin, mask = dsparse._segment_geom(*sl_in[:6], cellmap_a,
-                                                 cfg.grid, K)
-        flat = slots.reshape(-1)
-        lin2 = torch.where(mask, lin, -1).reshape(c7 * K, nvox)
-        del lin, mask
+        geom_in = (*sl_in[:6], cellmap_a, cfg.grid)
+        bg7, tgt7 = sl_in[6], sl_in[7]
+        flat, lin2 = krep.segment_geom(*geom_in)
+        want_geom = segment_geom_plain(*geom_in)
+        torch.cuda.synchronize()
+        check_equal("R1 replay slice", {"slots": flat, "lin2": lin2},
+                    dict(zip(("slots", "lin2"), want_geom)))
+        # The replay's slices at K = 2 and 4 are column cuts of the [N, 8]
+        # record (row stride 8): R1 reads them in place.
+        for kc in (2, 4):
+            cut = (*sl_in[:2], *(a[:, :kc] for a in sl_in[2:5]), sl_in[5],
+                   cellmap_a, cfg.grid)
+            check_equal(f"R1 replay slice, K = {kc} columns",
+                        dict(zip(("slots", "lin2"), krep.segment_geom(*cut))),
+                        dict(zip(("slots", "lin2"), segment_geom_plain(*cut))))
+        r1_err = float((lin2 - want_geom[1]).abs().max())
+        print(f"  R1 at {c7} rays x K = {K} ({lin2.shape[0]} segments, "
+              f"{int((lin2 >= 0).sum())} valid steps; K = 2 and 4 column "
+              f"cuts too): slots and visited voxels equal", flush=True)
+        del want_geom
+        vals = kext.extract_fwd(field4, flat, lin2)
+        x7 = vals[:, :nvox][lin2 >= 0]
+        sse_k, dv_k = krep.composite_sse(vals, lin2, bg7, tgt7)
+        sse_p, dv_p = composite_sse_plain(vals, lin2, bg7, tgt7)
+        torch.cuda.synchronize()
+        check_equal("R2 replay slice", {"sse": sse_k, "dvals": dv_k},
+                    {"sse": sse_p, "dvals": dv_p})
+        r2_err = max(float((sse_k - sse_p).abs().max()),
+                     float((dv_k - dv_p).abs().max()))
+        print(f"  R2 at {c7} rays x {K * nvox} steps (occupancies at 0: "
+              f"{int((x7 == 0).sum())}, at 1: {int((x7 == 1).sum())}, in "
+              f"between: {int(((x7 > 0) & (x7 < 1)).sum())}): SSE and "
+              f"cotangents equal", flush=True)
+        # R2 on the slice's steps with occupancies drawn at 0, 1, outside
+        # [0, 1] and inside, and albedos outside [0, 1].
+        vals_r = torch.rand(vals.shape, generator=gen, device=dev) * 0.4
+        pick = torch.randint(0, 16, (vals.shape[0], nvox), generator=gen,
+                             device=dev)
+        occ_r = vals_r[:, :nvox]
+        for code, value in ((0, 0.0), (1, 1.0), (2, -0.25), (3, 1.25)):
+            occ_r[pick == code] = value
+        vals_r[:, nvox:] = vals_r[:, nvox:] * 3.5 - 0.2
+        check_equal("R2 random values on the slice's steps",
+                    dict(zip(("sse", "dvals"),
+                             krep.composite_sse(vals_r, lin2, bg7, tgt7))),
+                    dict(zip(("sse", "dvals"),
+                             composite_sse_plain(vals_r, lin2, bg7, tgt7))))
+        print("  R2 on random values at the slice's steps (0, 1, outside "
+              "[0, 1]): equal", flush=True)
+        del sse_p, dv_p, vals_r, pick, occ_r, x7
+
         cs = lin2.shape[0]
         dv = torch.randn((cs, 4 * nvox), generator=gen, device=dev)
         check_b4(f"replay slice ({cs} rows)", field4, flat, lin2, dv)
@@ -1342,6 +1431,13 @@ def main() -> int:
                 (lambda: extract_bwd_plain(dfield, flat, lin2, dv), 3),
                 (lambda: field4.index_select(0, gidx_valid), 10),
                 (lambda: dfield.index_add_(0, gidx_valid, dv_valid), 10)))
+        # R1 and R2 alike; no single PyTorch call computes either.
+        r1_ms, r2_ms, r1_plain_ms, r2_plain_ms = (
+            cuda_ms(fn, reps, flush) for fn, reps in (
+                (lambda: krep.segment_geom(*geom_in), 10),
+                (lambda: krep.composite_sse(vals, lin2, bg7, tgt7), 10),
+                (lambda: segment_geom_plain(*geom_in), 3),
+                (lambda: composite_sse_plain(vals, lin2, bg7, tgt7), 2)))
         # B4b on index_add_'s own input: the compacted valid entries as
         # one-step rows.
         one_step = ((gidx_valid // 512).to(torch.int32),
@@ -1360,6 +1456,23 @@ def main() -> int:
                                   + 16 * entries, 0)
         b4b_bound, b4b_by = bound(4 * cs + 4 * entries + 16 * entries
                                   + 32 * n_valid, 4 * n_valid)
+        # R1: per ray its origin, direction and entry normal (36 B), per
+        # segment its cell, nd and ncode (12 B) and the cellmap word of each
+        # distinct cell once (4 B), the slot and nvox voxel ids written
+        # (4 + 4 nvox B); R1_OPS per valid segment and R1_RANK_OPS per rank
+        # of each axis its ray moves along.  R2: the values read and their
+        # cotangents written (2 x 16 B a step), lin2 read (4 B a step),
+        # background and target read (24 B a ray), the SSE written (4 B);
+        # R2_STEP_OPS a valid step.
+        cells7 = sl_in[2]
+        seg_ok = cells7 >= 0
+        cmap_words = int(torch.unique(cells7[seg_ok]).shape[0])
+        moving = int((seg_ok * (sl_in[1] != 0).sum(1, keepdim=True)).sum())
+        r1_bound, r1_by = bound(
+            36 * c7 + 12 * cs + 4 * cmap_words + (4 + 4 * nvox) * cs,
+            R1_OPS * int(seg_ok.sum()) + R1_RANK_OPS * (nvox - 1) * moving)
+        r2_bound, r2_by = bound(36 * entries + 28 * c7,
+                                R2_STEP_OPS * int((lin2 >= 0).sum()))
         print(f"  B4f at {cs} rows ({n_valid} valid voxels), L2 cold: "
               f"{b4f_ms:.4f} ms per launch (plain {b4f_plain_ms:.3f} ms, "
               f"index_select of the valid rows {b4f_lib_ms:.4f} ms, bound "
@@ -1372,14 +1485,22 @@ def main() -> int:
               f"compacted input {b4b_compact_ms:.4f} ms); its {n_valid} "
               f"atomics fall on {per_voxel.shape[0]} voxels, at most "
               f"{int(per_voxel.max())} on one", flush=True)
-        del gidx, valid, gidx_valid, dv_valid, per_voxel
+        print(f"  R1 at {cs} segments, L2 cold: {r1_ms:.4f} ms per launch "
+              f"(plain {r1_plain_ms:.3f} ms, bound {r1_bound:.4f} ms by "
+              f"{r1_by}, {100 * r1_bound / r1_ms:.1f}% of it; "
+              f"{cmap_words} cellmap words, ptxas {ptxas_line('replay')})")
+        print(f"  R2 at {c7} rays x {K * nvox} steps, L2 cold: {r2_ms:.4f} "
+              f"ms per launch (plain {r2_plain_ms:.3f} ms, bound "
+              f"{r2_bound:.4f} ms by {r2_by}, "
+              f"{100 * r2_bound / r2_ms:.1f}% of it)", flush=True)
+        del gidx, valid, gidx_valid, dv_valid, per_voxel, cells7, seg_ok
 
-        # Where one slice's time goes: host clock around synchronised work
-        # (the replay is eager torch: its launches set the pace).  The
-        # device's busy and idle shares come from one profiled call of the
-        # slice alone: the union of its device activities against the host
-        # time of that same call, and against the span from its first
-        # device activity to its last.
+        # Where one slice's time goes: host clock around synchronised work,
+        # each of the four launches alone and the whole slice
+        # (_row_chunk_grad).  The device's busy and idle shares come from
+        # one profiled call of the slice: the union of its device activities
+        # against the host time of that same call, and against the span from
+        # its first device activity to its last.
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -1392,22 +1513,15 @@ def main() -> int:
             torch.cuda.synchronize()
             return (time.perf_counter() - t1) * 1e3 / reps
 
-        sse0 = torch.zeros((), device=dev)
-        v7 = K * nvox
-        occ_v = torch.rand((c7, v7), generator=gen, device=dev)
-        s_v = torch.rand((c7, v7), generator=gen, device=dev)
-
         def one_slice():
-            dsparse._row_chunk_grad(*sl_in[:6], cellmap_a, sse0, dfield,
-                                    field4, sl_in[6], sl_in[7], cfg.grid, K)
+            dsparse._row_chunk_grad(*sl_in[:6], cellmap_a, dfield, field4,
+                                    bg7, tgt7, cfg.grid)
 
         parts = {
-            "geometry": host_ms(lambda: dsparse._segment_geom(
-                *sl_in[:6], cellmap_a, cfg.grid, K)),
+            "R1": host_ms(lambda: krep.segment_geom(*geom_in)),
             "B4f": host_ms(lambda: kext.extract_fwd(field4, flat, lin2)),
+            "R2": host_ms(lambda: krep.composite_sse(vals, lin2, bg7, tgt7)),
             "B4b": host_ms(lambda: kext.extract_bwd(dfield, flat, lin2, dv)),
-            "suffix loop": host_ms(lambda: dsparse._suffix(
-                occ_v, s_v, s_v[:, 0])),
             "whole slice": host_ms(one_slice),
         }
         print("  one 16,384-ray slice at K = 8 (host ms, 3 calls each): "
@@ -1419,10 +1533,14 @@ def main() -> int:
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t1) * 1e3
         busy_ms, span_ms, n_act = device_busy(prof)
+        slice_kernels = [e.name for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and not e.name.startswith(("Memcpy", "Memset"))]
         print(f"  one profiled call of the slice: {traced_ms:.3f} ms host, "
-              f"{n_act} device activities over {span_ms:.3f} ms from "
-              f"first to last, {busy_ms:.3f} ms busy -> device idle "
-              f"{1 - busy_ms / traced_ms:.3f} of the call, "
+              f"{n_act} device activities ({len(slice_kernels)} kernel "
+              f"launches: {', '.join(sorted(set(slice_kernels)))}) over "
+              f"{span_ms:.3f} ms from first to last, {busy_ms:.3f} ms busy "
+              f"-> device idle {1 - busy_ms / traced_ms:.3f} of the call, "
               f"{1 - busy_ms / span_ms:.3f} of its device span; top by "
               f"device time:")
         evs = prof.key_averages()
@@ -1434,14 +1552,19 @@ def main() -> int:
         for e in sorted(evs, key=dev_us, reverse=True)[:8]:
             print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
                   f"{e.key[:90]}")
-        # The row gather and the row index_add_ are folded into B4f/B4b:
-        # neither of torch's index_select or index_add_ kernels may run.
-        rows_ops = [e.key for e in evs if dev_us(e) > 0 and (
-            "indexSelect" in e.key or "indexFunc" in e.key)]
-        if rows_ops:
-            fail(f"the slice still runs index_select/index_add_: {rows_ops}")
-        del dfield, occ_v, s_v, field4, cellmap_a, sl_in, flat, lin2, dv
-        del slots
+        # A slice is R1 -> B4f -> R2 -> B4b: no eager geometry, cumprod or
+        # addcmul loop, and neither of torch's index_select or index_add_
+        # kernels (the row gather and the row index_add_ live in B4f/B4b).
+        if len(slice_kernels) > 6:
+            fail(f"the slice made {len(slice_kernels)} kernel launches: "
+                 f"{slice_kernels}")
+        eager = [k for k in slice_kernels if any(
+            w in k.lower() for w in ("cumprod", "addcmul", "indexselect",
+                                     "indexfunc"))]
+        if eager:
+            fail(f"the slice still runs eager replay kernels: {eager}")
+        del dfield, field4, cellmap_a, sl_in, flat, lin2, dv, vals
+        del sse_k, dv_k
 
         records["B3"] = {
             "name": "record (B3)", "route": "cuda",
@@ -1466,6 +1589,22 @@ def main() -> int:
             "ms": b4b_ms,
             "plain_ms": b4b_plain_ms, "bound_ms": b4b_bound,
             "bound_by": b4b_by, "library_ms": b4b_lib_ms}
+        # R1 and R2 have no Pallas twin: "replaces" names the JAX function
+        # XLA fuses.
+        records["R1"] = {
+            "name": "segment geometry (R1)", "route": "cuda",
+            "source": "brickmap_tpu_torch/csrc/replay.cu",
+            "replaces": "brickmap_tpu/diff/sparse.py:141",
+            "launches": launches["R1"], "max_abs_err": r1_err, "ms": r1_ms,
+            "plain_ms": r1_plain_ms, "bound_ms": r1_bound,
+            "bound_by": r1_by, "library_ms": None}
+        records["R2"] = {
+            "name": "composite forward + backward (R2)", "route": "cuda",
+            "source": "brickmap_tpu_torch/csrc/replay.cu",
+            "replaces": "brickmap_tpu/diff/sparse.py:293",
+            "launches": launches["R2"], "max_abs_err": r2_err, "ms": r2_ms,
+            "plain_ms": r2_plain_ms, "bound_ms": r2_bound,
+            "bound_by": r2_by, "library_ms": None}
 
     # ------------------------------------------------------------------
     from brickmap_tpu_torch.config import BRICK_LOADED_BIT
@@ -1907,12 +2046,14 @@ def main() -> int:
             cam0 = benchmark.benchmark_cameras()[0]
             arrays = camera_arrays_for(cam0, sun, w, h, dev)
             u = draw_wave_uniforms(n, cfg.render.max_bounces, gen, dev)
-            plain_calls = {"B2": 0, "B3": 0, "B4f": 0, "B4b": 0, "W1": 0,
-                           "W2": 0, "W3": 0}
+            plain_calls = {"B2": 0, "B3": 0, "R1": 0, "B4f": 0, "R2": 0,
+                           "B4b": 0, "W1": 0, "W2": 0, "W3": 0}
             saved10 = [counting(ktrav, "trace_rays", "B2"),
                        counting(ktrav, "trace_clipped_rays", "B2"),
                        counting(krec, "record_segments_plain", "B3"),
+                       counting(krep, "segment_geom_plain", "R1"),
                        counting(kext, "extract_fwd_plain", "B4f"),
+                       counting(krep, "composite_sse_plain", "R2"),
                        counting(kext, "extract_bwd_plain", "B4b"),
                        *count_wave_plain(plain_calls)]
 
@@ -2006,9 +2147,8 @@ def main() -> int:
                 o10, d10, world, cm10, occ10, alb10, bg10, tgt10, cfg.grid,
                 k_segments=K)
             torch.cuda.synchronize()
-            krec.record_segments.launches = 0
-            kext.extract_fwd.launches = 0
-            kext.extract_bwd.launches = 0
+            for f in train_kernels.values():
+                f.launches = 0
             t0 = time.perf_counter()
             o_s, d_s, bg_s, tgt_s = par.shard_rays(mesh, (o10, d10, bg10,
                                                           tgt10))
@@ -2017,9 +2157,7 @@ def main() -> int:
                 cfg.grid, k_segments=K)
             torch.cuda.synchronize()
             step_s = time.perf_counter() - t0
-            launches10 = {"B3": krec.record_segments.launches,
-                          "B4f": kext.extract_fwd.launches,
-                          "B4b": kext.extract_bwd.launches}
+            launches10 = {k: f.launches for k, f in train_kernels.items()}
             errs = [(float((a - b).abs().max()), float(b.abs().max()))
                     for a, b in ((go_s, go_1), (ga_s, ga_1))]
             print(f"  inverse_train_step_sparse, {n} rays, K = {K}, "
@@ -2075,19 +2213,21 @@ def main() -> int:
         if not (math.isfinite(dense["loss"]) and dense["mrays_per_s"] > 0):
             fail(f"the dense stage: {dense}")
 
-        krec.record_segments.launches = 0
+        for f in train_kernels.values():
+            f.launches = 0
         small = benchmark.run_sparse_inverse_benchmark_small(dev)
+        small_launches = {k: f.launches for k, f in train_kernels.items()}
         print(f"  sparse stage on the small world (bench.py::_sparse_bwd_"
               f"bench, 1024^2 x 256, {small['bricks']} bricks, "
               f"{small['rays']} rays, K = {benchmark.SPARSE_K}): full "
               f"{small['full']:.4f} Mrays/s ({small['full_s']:.3f} s), "
               f"cached_step {small['cached_step']:.4f} Mrays/s "
               f"({small['cached_step_s']:.3f} s), loss {small['loss']!r}, "
-              f"B3 launches {krec.record_segments.launches} on "
-              f"{small['device']}", flush=True)
+              f"launches {small_launches} on {small['device']}", flush=True)
         if not (math.isfinite(small["loss"]) and small["full"] > 0
-                and krec.record_segments.launches > 0):
-            fail(f"the small-world sparse stage: {small}")
+                and min(small_launches.values()) > 0):
+            fail(f"the small-world sparse stage: {small}, launches "
+                 f"{small_launches}")
 
     for r in records.values():
         for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
@@ -2096,7 +2236,7 @@ def main() -> int:
     print(smi_line())
     print(json.dumps({"kernels": [records[k] for k in
                                   ("B1", "B2", "B3", "B4f", "B4b", "W1",
-                                   "W2", "W3")]}))
+                                   "W2", "W3", "R1", "R2")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

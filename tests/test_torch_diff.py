@@ -278,10 +278,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_training_step_matches_cpu(cuda_device):
-    """The sparse training step through B3/B4f/B4b on a 512^2 x 128 terrain
-    world against the CPU path (plain versions); gradient sums on the card
-    use atomics, hence the tolerance."""
+    """The sparse training step through B3, R1, B4f, R2 and B4b on a
+    512^2 x 128 terrain world against the CPU path (plain versions);
+    gradient sums on the card use atomics, hence the tolerance."""
     from brickmap_tpu_torch.kernels import extract as kext, record as krec
+    from brickmap_tpu_torch.kernels import replay as krep
 
     grid = GridConfig(grid_size=512, grid_height=128)
     cpu = tscene.generate_terrain_scene(grid, device="cpu")
@@ -299,17 +300,19 @@ def test_cuda_training_step_matches_cpu(cuda_device):
         cm = tsparse.cell_pool_map(sc, grid)
         occ, alb = tsparse.pool_fields_from_bitmask(sc)
         before = (krec.record_segments.launches, kext.extract_fwd.launches,
-                  kext.extract_bwd.launches)
+                  kext.extract_bwd.launches, krep.segment_geom.launches,
+                  krep.composite_sse.launches)
         loss, (go, ga) = tsparse.l2_loss_and_grads_sparse(
             t(o).to(dev), t(d).to(dev), sc, cm, occ * 0.8, alb * 0.6,
             torch.zeros((n, 3), device=dev), torch.full((n, 3), 0.4,
                                                         device=dev),
             grid, k_segments=8, host_chunk=4096)
         after = (krec.record_segments.launches, kext.extract_fwd.launches,
-                 kext.extract_bwd.launches)
+                 kext.extract_bwd.launches, krep.segment_geom.launches,
+                 krep.composite_sse.launches)
         out[dev.type] = (loss.cpu(), go.cpu(), ga.cpu(),
                          [a - b for a, b in zip(after, before)])
-    assert out["cpu"][3] == [0, 0, 0]
+    assert out["cpu"][3] == [0, 0, 0, 0, 0]
     assert all(c >= 1 for c in out["cuda"][3])
     np.testing.assert_allclose(float(out["cuda"][0]), float(out["cpu"][0]),
                                rtol=1e-5)

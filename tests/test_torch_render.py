@@ -244,8 +244,11 @@ def test_port_imports_neither_jax_nor_brickmap_tpu():
         " or m == 'brickmap_tpu' or m.startswith('brickmap_tpu.')]\n"
         "assert not bad, bad\n"
         "for m in ('stream', 'parallel.render', 'app.scaling',"
-        " 'utils.preview', 'utils.profiling', 'utils.debug'):\n"
+        " 'utils.preview', 'utils.profiling', 'utils.debug',"
+        " 'kernels.replay', 'ops.replay'):\n"
         "    assert 'brickmap_tpu_torch.' + m in sys.modules, m\n"
+        "assert all(hasattr(p, n) for n in p.__all__)\n"
+        "assert 'full' in p.PRESETS and p.GridConfig is p.config.GridConfig\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('brickmap_tpu_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
