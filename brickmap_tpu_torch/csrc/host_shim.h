@@ -1,33 +1,41 @@
 // Host shim: builds a kernel source of this directory with g++ so that its
 // logic runs on the CPU, driven through the same ctypes signature as the
 // nvcc build, and can be held against the plain torch version before any
-// time on the card.  tests/test_torch_traverse_host.py rehearses kernel B2
-// (traverse.cu) this way:
+// time on the card.  tests/_host_build.py prepares a source for it:
 //
-//   1. drop the line `#include <cuda_runtime.h>`, and turn every launch
+//   1. drop the line `#include <cuda_runtime.h>`; turn every launch
 //      `k<<<g, t, s, st>>>(args);` into `launch_(g, t, s, st, [&] {
-//      k(args); });` (a regex);
+//      k(args); });` and every `extern __shared__ [__align__(n)] T name[];`
+//      into a pointer to the launch's dynamic shared memory (regexes);
 //   2. g++ -std=c++20 -O1 -ffp-contract=off -shared -fPIC
 //          -include host_shim.h -I <this directory> <the result>
 //
 // (no FMA contraction: every float operation rounds as the nvcc build's,
 // which is -fmad=false, and the plain version's do).
 //
-// A launch runs its blocks on a few host threads, and a block's threads one
-// after another.  That is exact for kernels whose threads share nothing
-// (B2: `__shared__` becomes thread_local storage, so each host thread has
-// its own copy and a CUDA thread its own slot of it) and have no
-// __syncthreads or warp intrinsics; anything else does not compile here
-// (the wave kernels, csrc/wave.cu, keep their block reduction under
-// __CUDA_ARCH__ and add with a plain atomic in this build, which
-// tests/test_torch_wave_host.py rehearses the same way).
+// A launch runs its blocks one after another, and a block's threads at
+// once: one host thread per CUDA thread.  `__shared__` storage is static,
+// so the threads of the running block share it; `__syncthreads()` is a
+// barrier of the block's threads and `__syncwarp()` one of the 32 threads
+// of the caller's warp (fewer in a block's last, partial warp), and a
+// block's threads all meet once more after the kernel body, before the
+// next block takes the shared storage.  As on the card, every thread of a
+// block (of a warp) must reach each `__syncthreads()` (`__syncwarp()`): a
+// kernel that returns early above one leaves the barrier's phases out of
+// step.  Other warp intrinsics are not here; inline PTX (`cp.async`) sits
+// under `__CUDA_ARCH__` with a plain C twin in the kernel source (the wave
+// kernels, csrc/wave.cu, keep their block reduction under __CUDA_ARCH__
+// and add with a plain atomic in this build).
 #pragma once
 
 #include <math.h>
+#include <string.h>
 
 #include <algorithm>
 #include <atomic>
+#include <barrier>
 #include <cstddef>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -36,7 +44,8 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
-#define __shared__ static thread_local
+#define __shared__ static
+#define __align__(n) alignas(n)
 #define __restrict__ __restrict
 
 struct uint3 {
@@ -47,9 +56,18 @@ struct dim3 {
   dim3(unsigned int a = 1, unsigned int b = 1, unsigned int c = 1)
       : x(a), y(b), z(c) {}
 };
+struct int2 {
+  int x, y;
+};
 struct int4 {
   int x, y, z, w;
 };
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 
 inline thread_local uint3 threadIdx{0, 0, 0};
 inline thread_local uint3 blockIdx{0, 0, 0};
@@ -57,7 +75,22 @@ inline thread_local dim3 blockDim;
 inline thread_local dim3 gridDim;
 
 typedef void* cudaStream_t;
-inline int cudaGetLastError() { return 0; }
+typedef int cudaError_t;
+constexpr cudaError_t cudaSuccess = 0;
+constexpr cudaError_t cudaErrorInvalidValue = 1;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+// A small card: 2 blocks of any kernel resident on an SM.
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* blocks, F, int, std::size_t) {
+  *blocks = 2;
+  return cudaSuccess;
+}
 
 using std::max;
 using std::min;
@@ -68,32 +101,53 @@ inline T __ldg(const T* p) {
 }
 
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+inline int __popc(unsigned int v) { return __builtin_popcount(v); }
 
 inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
 }
 
+// The running block's barriers, and the launch's dynamic shared memory.
+inline thread_local std::barrier<>* block_barrier_ = nullptr;
+inline thread_local std::barrier<>* warp_barrier_ = nullptr;
+inline unsigned char* dynamic_shared_ = nullptr;
+
+inline void __syncthreads() { block_barrier_->arrive_and_wait(); }
+inline void __syncwarp(unsigned int = 0xffffffffu) {
+  warp_barrier_->arrive_and_wait();
+}
+
 // The launch: grid.x blocks of block.x threads (1-D, as the port's kernels
-// launch), on at most 4 host threads.
+// launch), one block at a time, its threads on as many host threads.
 template <class F>
-inline void launch_(dim3 grid, dim3 block, std::size_t, cudaStream_t,
-                    F&& body) {
-  std::atomic<unsigned int> next{0};
-  auto worker = [&] {
+inline void launch_(dim3 grid, dim3 block, std::size_t shared_bytes,
+                    cudaStream_t, F&& body) {
+  const unsigned int nt = block.x;
+  std::vector<std::max_align_t> shared(
+      (shared_bytes + sizeof(std::max_align_t) - 1) /
+      sizeof(std::max_align_t) + 1);
+  dynamic_shared_ = reinterpret_cast<unsigned char*>(shared.data());
+  std::barrier<> block_bar(nt);
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+  for (unsigned int w = 0; w * 32 < nt; ++w) {
+    warp_bars.push_back(
+        std::make_unique<std::barrier<>>(std::min(32u, nt - w * 32)));
+  }
+  auto worker = [&](unsigned int t) {
     gridDim = grid;
     blockDim = block;
-    for (unsigned int b; (b = next++) < grid.x;) {
+    threadIdx = {t, 0, 0};
+    block_barrier_ = &block_bar;
+    warp_barrier_ = warp_bars[t / 32].get();
+    for (unsigned int b = 0; b < grid.x; ++b) {
       blockIdx = {b, 0, 0};
-      for (unsigned int t = 0; t < block.x; ++t) {
-        threadIdx = {t, 0, 0};
-        body();
-      }
+      body();
+      block_bar.arrive_and_wait();
     }
   };
-  const unsigned int n = std::max(
-      1u, std::min(4u, std::thread::hardware_concurrency()));
   std::vector<std::thread> pool;
-  for (unsigned int k = 0; k < n; ++k) pool.emplace_back(worker);
+  for (unsigned int t = 0; t < nt; ++t) pool.emplace_back(worker, t);
   for (auto& th : pool) th.join();
+  dynamic_shared_ = nullptr;
 }

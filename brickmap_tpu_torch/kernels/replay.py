@@ -34,7 +34,7 @@ from ..ops.replay import composite_sse_plain, segment_geom_plain
 from . import build, hooked
 
 __all__ = ["segment_geom", "composite_sse", "segment_geom_args",
-           "composite_sse_args"]
+           "composite_sse_args", "launch_shape"]
 
 _F32, _I32 = torch.float32, torch.int32
 _BRICK = 8                  # csrc/replay.cu's kBrick
@@ -46,7 +46,9 @@ def _bind(lib) -> None:
     lib.replay_geom_launch.argtypes = (
         [i, i, p, p, p, p, i, p, i, p, i, p, i, i, i, f, p, p, p])
     lib.replay_composite_launch.argtypes = [i, i, i] + [p] * 6 + [p]
-    for fn in (lib.replay_geom_launch, lib.replay_composite_launch):
+    lib.replay_launch_shape.argtypes = [i, p]
+    for fn in (lib.replay_geom_launch, lib.replay_composite_launch,
+               lib.replay_launch_shape):
         fn.restype = i
 
 
@@ -146,13 +148,22 @@ def composite_sse_args(vals, lin2, background, target, out: tuple,
     if lin2.dim() != 2 or c == 0 or lin2.shape[0] % c:
         raise ValueError(f"{name}: lin2 must be [C*K, nvox] for {c} rays")
     cs, nvox = lin2.shape
+    if nvox != NVOX:
+        raise ValueError(f"{name}: the kernel takes rows of {NVOX} steps, "
+                         f"not {nvox}")
     _need(name, "vals", vals, dev, _F32, (cs, 4 * nvox))
     _need(name, "lin2", lin2, dev, _I32, (cs, nvox))
     _need(name, "background", background, dev, _F32, (c, 3))
     _need(name, "target", target, dev, _F32, (c, 3))
     if cs * 4 * nvox >= 2 ** 31:
         raise ValueError(f"{name}: {cs} x {4 * nvox} values exceed int32")
+    # The kernel copies vals and dvals rows in 16-byte pieces and lin2 rows
+    # in 8-byte ones.
     keep = [a.contiguous() for a in (vals, lin2, background, target)]
+    for arg, a, align in (("vals", keep[0], 16), ("lin2", keep[1], 8),
+                          ("dvals", out[1], 16)):
+        if a.data_ptr() % align:
+            raise ValueError(f"{name}: {arg} must be {align}-byte aligned")
     args = (c, cs // c, nvox, *(a.data_ptr() for a in keep),
             *(a.data_ptr() for a in out), stream)
     return args, keep
@@ -186,3 +197,15 @@ def composite_sse(vals, lin2, background, target) -> tuple:
 
 composite_sse.launches = 0
 composite_sse.events = None
+
+
+def launch_shape(keff: int, device=None) -> dict:
+    """Each kernel's launch at K = ``keff`` on a CUDA ``device``: ``{"R1":
+    (threads a block, dynamic shared bytes, blocks resident an SM), "R2":
+    (...)}``, from the kernels' launchers and the CUDA occupancy API."""
+    lib = build.load("replay", _bind)
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        build.check(lib.replay_launch_shape(keff, ctypes.addressof(out)),
+                    "replay_launch_shape")
+    return {"R1": tuple(out[:3]), "R2": tuple(out[3:])}

@@ -10,8 +10,8 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels (nvcc, all sources at once, rebuilt even where a
    build exists) and the native heightfield (g++); print the ptxas summary,
-   and fail if B1's, B2's, B3's or W1-W3's build has a stack frame or
-   spills;
+   and fail if B1's, B2's, B3's, W1-W3's or R1-R2's build has a stack frame
+   or spills;
 3. kernel B1 (brick DDA) against its plain torch version, every output
    equal (``t`` included): 1M random rays at densities 0.12, 0.5 and 0.9,
    ``bench.py``'s 2M rays, origins around the brick, edge values of
@@ -73,8 +73,15 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    version on the frame's rays (with its SIMD efficiency and ptxas line),
    and R1, B4f, R2 and B4b on the first 16,384-ray slice of the step's
    seg_cache at K = 8 (R1 also on its K = 2 and 4 column cuts, R2 also on
-   random values with occupancies at 0, 1 and outside [0, 1]; all equal
-   bit for bit except B4b, within 1e-6), each timed there, L2 cold, beside
+   random values with occupancies at 0, 1 and outside [0, 1]; R1 and R2
+   also at 1, 31 and 33 rays, at the rays that fill the R2 warps and the R1
+   threads resident at once, one less and one more, and on the step's
+   last, partial slice, with each one's launch shape and dynamic shared
+   memory printed; R1 also on segments whose crossing counts saturate their
+   int32 conversion, where a build of R1 with the sweep on every axis must
+   differ, so that the kernel's binary search is shown reached and exact;
+   R2 refusing views of its inputs off their 16- and 8-byte alignment; all
+   equal bit for bit except B4b, within 1e-6), each timed there, L2 cold, beside
    its bound and, for B4f/B4b, a PyTorch call; one slice is timed by part
    and profiled: its host ms, device busy ms and idle share, at most 6
    kernel launches and no cumprod, addcmul, index_select or index_add_
@@ -125,6 +132,7 @@ The second-to-last line is the per-kernel JSON record, the last line
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import io
 import json
@@ -409,15 +417,28 @@ def main() -> int:
         th = threading.Thread(target=lambda: native_ok.append(
             native.available()))
         th.start()
-        secs = build.build(force=True)
-        th.join()
+        # R1 with the sweep on every axis (BM_R1_MERGE=2), for phase 7's
+        # check that its saturating segments reach the binary search.
+        os.makedirs(build.BUILD_DIR, exist_ok=True)
+        sweep_so = os.path.join(build.BUILD_DIR, "libreplay_sweep.so")
+        sweep = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-DBM_R1_MERGE=2", "-o",
+             sweep_so, os.path.join(build.CSRC, "replay.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            secs = build.build(force=True)
+        finally:
+            sweep_err = sweep.communicate()[1]
+            th.join()
+        if sweep.returncode != 0:
+            fail(f"nvcc of replay.cu with BM_R1_MERGE=2 failed:\n{sweep_err}")
         print(f"  nvcc build of {list(build.KERNELS)}: {secs:.2f} s")
         for name, lines in build.ptxas_summary.items():
             for line in lines:
                 print(f"  ptxas {name}: {line}")
         if not native_ok[0]:
             fail("native heightfield (g++) did not build")
-        for name in ("brick", "traverse", "record", "wave"):
+        for name in ("brick", "traverse", "record", "wave", "replay"):
             if not ptxas_clean(name):
                 fail(f"{name}.cu: ptxas reports a stack frame or spills")
 
@@ -1354,7 +1375,8 @@ def main() -> int:
         # 16,384 count-sorted live rays of the timed steps' seg_cache at
         # K = 8 (131,072 rows).
         c7 = 16384
-        sl_in = tuple(a[:c7] for a in frame["seg_cache"]["geo"])
+        geo7, live7 = frame["seg_cache"]["geo"], frame["seg_cache"]["n_live"]
+        sl_in = tuple(a[:c7] for a in geo7)
         cellmap_a = frame["cellmap"]
         field4 = dsparse._pack_field(frame["occupancy"], frame["albedo"])
         del frame, o7, d7
@@ -1407,6 +1429,87 @@ def main() -> int:
                              composite_sse_plain(vals_r, lin2, bg7, tgt7))))
         print("  R2 on random values at the slice's steps (0, 1, outside "
               "[0, 1]): equal", flush=True)
+        # R1 and R2 on their launches' edges, over the step's count-sorted
+        # live rays at K = 8: 1, 31 and 33 rays, the rays of the R2 warps
+        # and of the R1 threads resident at once on the card, one less and
+        # one more, and the step's last, partial slice.
+        shape7 = krep.launch_shape(K)
+        print(f"  R1/R2 launches at K = {K} (threads a block, dynamic shared "
+              f"bytes, blocks resident an SM): {shape7}")
+        r2_res = shape7["R2"][0] * shape7["R2"][2] * sms
+        r1_res = shape7["R1"][0] * shape7["R1"][2] * sms // K
+        last7 = (live7 - 1) // c7 * c7
+        edges = [(0, n) for n in (1, 31, 33, r2_res - 1, r2_res + 1,
+                                  r1_res - 1, r1_res + 1)] + [(last7, live7)]
+        for lo7, hi7 in edges:
+            sl = [g[lo7:hi7] for g in geo7]
+            gin = (*sl[:6], cellmap_a, cfg.grid)
+            want_g = segment_geom_plain(*gin)
+            check_equal(f"R1 at rays [{lo7}, {hi7})",
+                        dict(zip(("slots", "lin2"), krep.segment_geom(*gin))),
+                        dict(zip(("slots", "lin2"), want_g)))
+            v = kext.extract_fwd(field4, *want_g)
+            check_equal(f"R2 at rays [{lo7}, {hi7})",
+                        dict(zip(("sse", "dvals"), krep.composite_sse(
+                            v, want_g[1], sl[6], sl[7]))),
+                        dict(zip(("sse", "dvals"), composite_sse_plain(
+                            v, want_g[1], sl[6], sl[7]))))
+        print(f"  R1 and R2 at {[hi - lo for lo, hi in edges]} rays (the last "
+              f"the step's last slice, rays {last7} to {live7}): equal",
+              flush=True)
+        del sl, gin, want_g, v
+        # R1 where crossing counts saturate their int32 conversion: the
+        # first slice's segments, on rays with one direction component of
+        # magnitude 1e-12 to 1e-7 and entry distances up to 2,000 cells.
+        # The kernel takes merge_offsets' binary search on such axes (the
+        # ranks wrap there); a build with the sweep on every axis must
+        # differ from the plain version, so the search was reached.
+        sat = [g[:c7] for g in geo7[:6]]
+        d_sat = sat[1].double()
+        ax = torch.randint(0, 3, (c7, 1), generator=gen, device=dev)
+        tiny = (10.0 ** (torch.rand((c7, 1), generator=gen, device=dev,
+                                    dtype=torch.float64) * 5 - 12)
+                * (torch.randint(0, 2, (c7, 1), generator=gen, device=dev)
+                   * 2 - 1))
+        d_sat.scatter_(1, ax, tiny)
+        sat[1] = (d_sat / d_sat.norm(dim=1, keepdim=True)).float()
+        sat[3] = torch.rand(sat[3].shape, generator=gen, device=dev) * 2000
+        gin = (*sat, cellmap_a, cfg.grid)
+        want_g = segment_geom_plain(*gin)
+        check_equal("R1 on saturating segments",
+                    dict(zip(("slots", "lin2"), krep.segment_geom(*gin))),
+                    dict(zip(("slots", "lin2"), want_g)))
+        sweep_lib = ctypes.CDLL(sweep_so)
+        krep._bind(sweep_lib)
+        swept = (torch.empty_like(want_g[0]), torch.empty_like(want_g[1]))
+        sargs, skeep = krep.segment_geom_args(
+            *gin, swept, torch.cuda.current_stream(dev).cuda_stream)
+        build.check(sweep_lib.replay_geom_launch(*sargs),
+                    "segment_geom_kernel (BM_R1_MERGE=2)")
+        torch.cuda.synchronize()
+        n_swept = int((swept[1] != want_g[1]).any(1).sum())
+        print(f"  R1 on {c7 * K} saturating segments "
+              f"({int((want_g[1] >= 0).sum())} valid steps): equal; the "
+              f"sweep-only build differs on {n_swept} rows", flush=True)
+        if n_swept == 0:
+            fail("R1's saturating segments do not reach the binary search: "
+                 "the sweep-only build equals the plain version there")
+        del geo7, sat, d_sat, ax, tiny, gin, want_g, swept, sargs, skeep
+        # R2 on views of the slice's values and visited voxels 4 bytes off
+        # their rows' alignment: the wrapper refuses them (the kernel copies
+        # them in 16- and 8-byte pieces).
+        for i, arg in enumerate(("vals", "lin2")):
+            ins = [vals, lin2]
+            ins[i] = torch.empty(ins[i].numel() + 1, dtype=ins[i].dtype,
+                                 device=dev)[1:].view(ins[i].shape)
+            ins[i].copy_((vals, lin2)[i])
+            try:
+                krep.composite_sse(*ins, bg7, tgt7)
+            except ValueError as e:
+                print(f"  R2 on an unaligned view of {arg}: refused ({e})")
+            else:
+                fail(f"R2 took an unaligned view of {arg}")
+            del ins
         del sse_p, dv_p, vals_r, pick, occ_r, x7
 
         cs = lin2.shape[0]

@@ -12,28 +12,36 @@ from brickmap_tpu_torch.kernels.build import CSRC
 
 def host_source(name: str) -> str:
     """``csrc/<name>.cu`` as plain C++ for ``host_shim.h``: without the CUDA
-    runtime header, each ``<<<...>>>`` launch a ``launch_`` call."""
+    runtime header, each ``<<<...>>>`` launch a ``launch_`` call, each
+    ``extern __shared__`` array a pointer to the launch's dynamic shared
+    memory."""
     with open(os.path.join(CSRC, f"{name}.cu")) as f:
         src = f.read()
     src = src.replace("#include <cuda_runtime.h>", "")
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
+                 lambda m: f"{m.group(1)}* const {m.group(2)} = "
+                           f"reinterpret_cast<{m.group(1)}*>(dynamic_shared_);",
+                 src)
     return re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);",
                   lambda m: f"launch_({m.group(2)}, [&] {{ "
                             f"{m.group(1)}({m.group(3)}); }});",
                   src, flags=re.S)
 
 
-def host_build(name: str, out_dir: str) -> str:
-    """Build ``csrc/<name>.cu`` into ``out_dir`` and return the library's
-    path."""
+def host_build(name: str, out_dir: str, defines=()) -> str:
+    """Build ``csrc/<name>.cu`` into ``out_dir`` (with ``-D`` of each of
+    ``defines``) and return the library's path."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
-    cpp = os.path.join(out_dir, f"{name}_host.cpp")
+    tag = "".join(f"_{d}" for d in defines).replace("=", "")
+    cpp = os.path.join(out_dir, f"{name}{tag}_host.cpp")
     with open(cpp, "w") as f:
         f.write(host_source(name))
-    lib = os.path.join(out_dir, f"lib{name}_host.so")
+    lib = os.path.join(out_dir, f"lib{name}{tag}_host.so")
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-include", os.path.join(CSRC, "host_shim.h"),
-                    "-I", CSRC, "-o", lib, cpp, "-pthread"],
+                    "-fPIC", *(f"-D{d}" for d in defines), "-include",
+                    os.path.join(CSRC, "host_shim.h"), "-I", CSRC, "-o", lib,
+                    cpp, "-pthread"],
                    check=True, capture_output=True, text=True)
     return lib

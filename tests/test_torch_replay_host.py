@@ -16,7 +16,15 @@ are held bit for bit:
   codes, far entry distances): slots and visited voxels equal;
 * R2 on B4f's values of those segments over the terrain's fields, and on
   random values with occupancies exactly 0 and 1, outside [0, 1] and
-  masked, at K = 2, 4 and 8: each ray's SSE and every cotangent equal.
+  masked, at K = 2, 4 and 8: each ray's SSE and every cotangent equal;
+* both at 1, 31, 33, 127 and 129 rays and K = 2, 4 and 8 (partial warps
+  and blocks: R2 stages a warp's rows and R1 a block's through shared
+  memory, with barriers, which the shim runs as on the card);
+* R1 on segments whose crossing counts saturate (direction components near
+  0, far entry distances), where the ranks of an axis are not monotone and
+  the kernel keeps merge_offsets' search; a build with the search on every
+  axis equals the plain version too, and one with the sweep on every axis
+  differs there (so those segments reach the search).
 
 Skipped only where there is no g++.
 """
@@ -53,6 +61,20 @@ def host_lib(tmp_path_factory):
         "replay", str(tmp_path_factory.mktemp("rhost"))))
     krep._bind(so)
     return so
+
+
+@pytest.fixture(scope="module")
+def merge_libs(tmp_path_factory):
+    """Builds with the search (1) and the sweep (2) on every axis."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    out = str(tmp_path_factory.mktemp("rmerge"))
+    libs = {}
+    for mode in (1, 2):
+        libs[mode] = ctypes.CDLL(host_build(
+            "replay", out, defines=(f"BM_R1_MERGE={mode}",)))
+        krep._bind(libs[mode])
+    return libs
 
 
 @pytest.fixture(scope="module")
@@ -100,6 +122,22 @@ def random_segments(seed, n, cellmap):
     return tuple(torch.from_numpy(a.astype(np.float32) if a.dtype.kind == "f"
                                   else a)
                  for a in (o, d, cells, nd, ncode, enorm))
+
+
+def saturating_segments(seed, n, cellmap):
+    """Random segments whose rays have a direction component of magnitude
+    1e-12 to 1e-7 (its crossings ~1e7 to 1e12 apart) and far entry
+    distances: the other axes' crossing counts saturate their int32
+    conversion there."""
+    o, d, cells, nd, ncode, enorm = random_segments(seed, n, cellmap)
+    rng = np.random.default_rng(seed + 100)
+    d = d.numpy().astype(np.float64)
+    axis = rng.integers(0, 3, n)
+    d[np.arange(n), axis] = rng.choice([-1.0, 1.0], n) * 10.0 ** \
+        rng.uniform(-12, -7, n)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    nd = torch.from_numpy(rng.uniform(0.0, 2000.0, (n, K)).astype(np.float32))
+    return o, torch.from_numpy(d.astype(np.float32)), cells, nd, ncode, enorm
 
 
 def host_geom(lib, o, d, cells, nd, ncode, enorm, cellmap):
@@ -172,9 +210,21 @@ def test_r2_on_the_terrain_fields(host_lib, terrain, keff):
     assert bool((want[1][:, :NVOX] != 0).any())
 
 
+def unaligned(a):
+    """``a`` as a view one element past an aligned buffer's start."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype)
+    v = buf[1:].view(a.shape)
+    v.copy_(a)
+    return v
+
+
+@pytest.mark.parametrize("offset", [False, True])
 @pytest.mark.parametrize("keff", [2, 4, 8])
-def test_r2_on_random_values(host_lib, keff):
-    """Occupancies exactly 0 and 1, outside [0, 1], and masked steps."""
+def test_r2_on_random_values(host_lib, keff, offset):
+    """Occupancies exactly 0 and 1, outside [0, 1], and masked steps; with
+    ``offset``, vals and lin2 are views 4 bytes off their rows' alignment,
+    which the arguments refuse (the kernel copies them in 16- and 8-byte
+    pieces)."""
     rng = np.random.default_rng(30 + keff)
     c = 500
     cs = c * keff
@@ -191,6 +241,68 @@ def test_r2_on_random_values(host_lib, keff):
     bg = rng.uniform(0, 1, (c, 3)).astype(np.float32)
     tgt = rng.uniform(0, 1, (c, 3)).astype(np.float32)
     args = [torch.from_numpy(a) for a in (vals, lin2, bg, tgt)]
-    got = host_composite(host_lib, *args)
     want = composite_sse_plain(*args)
+    if offset:
+        for i, what in ((0, "vals"), (1, "lin2")):
+            bad = list(args)
+            bad[i] = unaligned(args[i])
+            with pytest.raises(ValueError, match=f"{what} must be"):
+                host_composite(host_lib, *bad)
+    assert_equal(host_composite(host_lib, *args), want)
+
+
+@pytest.mark.parametrize("keff", [2, 4, 8])
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129])
+def test_r1_r2_at_ray_counts(host_lib, terrain, n, keff):
+    """R1 and R2 on the first n rays' segments at K = keff (column cuts of
+    the record), R2 on their B4f values and on random values there."""
+    segs, d, cellmap, field4 = terrain
+    args = (segs["o_cells"][:n], d[:n], segs["cells"][:n, :keff],
+            segs["nd"][:n, :keff], segs["ncode"][:n, :keff],
+            segs["entry_normal"][:n], cellmap)
+    got = host_geom(host_lib, *args)
+    want = segment_geom_plain(*args, GRID)
     assert_equal(got, want)
+    slots, lin2 = want
+    rng = np.random.default_rng(1000 * n + keff)
+    bg = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    tgt = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    vals = extract_fwd_plain(field4, slots, lin2)
+    assert_equal(host_composite(host_lib, vals, lin2, bg, tgt),
+                 composite_sse_plain(vals, lin2, bg, tgt))
+    x = rng.uniform(-0.25, 1.25, (n * keff, 4 * NVOX)).astype(np.float32)
+    x[rng.random(x.shape) < 0.2] = 0.0
+    x[rng.random(x.shape) < 0.1] = 1.0
+    vals = torch.from_numpy(x)
+    assert_equal(host_composite(host_lib, vals, lin2, bg, tgt),
+                 composite_sse_plain(vals, lin2, bg, tgt))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_r1_on_saturating_segments(host_lib, merge_libs, terrain, seed):
+    """Where the counts saturate: the kernel and its search-only build equal
+    the plain version; the sweep-only build does not (the ranks wrap)."""
+    cellmap = terrain[2]
+    segs = saturating_segments(seed, 1500, cellmap)
+    want = segment_geom_plain(*segs, cellmap, GRID)
+    assert int((want[1] >= 0).sum()) > 1000
+    assert_equal(host_geom(host_lib, *segs, cellmap), want)
+    assert_equal(host_geom(merge_libs[1], *segs, cellmap), want)
+    swept = host_geom(merge_libs[2], *segs, cellmap)
+    assert not torch.equal(swept[1], want[1])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_r1_search_build_on_random_segments(merge_libs, terrain, seed):
+    """The search on every axis (the first design's merge) equals the plain
+    version on the random segments and the record."""
+    segs, d, cellmap, _ = terrain
+    o, d2, cells, nd, ncode, enorm = random_segments(seed, 1500, cellmap)
+    assert_equal(host_geom(merge_libs[1], o, d2, cells, nd, ncode, enorm,
+                           cellmap),
+                 segment_geom_plain(o, d2, cells, nd, ncode, enorm, cellmap,
+                                    GRID))
+    args = (segs["o_cells"], d, segs["cells"], segs["nd"], segs["ncode"],
+            segs["entry_normal"], cellmap)
+    assert_equal(host_geom(merge_libs[1], *args),
+                 segment_geom_plain(*args, GRID))
