@@ -182,7 +182,8 @@ def run_forward_benchmark(scene, cfg: BrickmapConfig, *,
     if total_exh:
         raise RuntimeError(
             f"benchmark invalid: {total_exh} rays exhausted their traversal "
-            "budget after the rescue passes (render.pathtrace._rescue)")
+            "budget after the rescue passes (kernel W4, render.pathtrace."
+            "_trace_live)")
     return {
         "per_view": results,
         "mrays_per_s": agg_rays / agg_s / 1e6,

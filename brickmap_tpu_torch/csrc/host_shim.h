@@ -62,6 +62,9 @@ struct int2 {
 struct int4 {
   int x, y, z, w;
 };
+struct alignas(16) uint4 {
+  unsigned int x, y, z, w;
+};
 struct alignas(16) float4 {
   float x, y, z, w;
 };

@@ -57,7 +57,11 @@ def lib_path(name: str) -> str:
 
 
 def _sources(name: str) -> list[str]:
-    return [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "dda.cuh")]
+    """The source and every file it may include (``csrc/*.cuh``,
+    ``csrc/*.inc``)."""
+    return [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, f) for f in sorted(os.listdir(CSRC))
+        if f.endswith((".cuh", ".inc"))]
 
 
 def _stale(name: str) -> bool:

@@ -1,10 +1,13 @@
-"""Kernels W1-W3: the sample wave's stages around the traversal.
+"""Kernels W0-W4: the sample wave's stages around the traversal.
 
 The JAX package leaves these stages to XLA, which fuses each jitted stage
 (``brickmap_tpu/render/pathtrace.py``) into a few device programs; the port
-runs them as three hand-written CUDA kernels (``csrc/wave.cu``), one thread
-per lane:
+runs them as hand-written CUDA kernels (``csrc/wave.cu``), one thread per
+lane, ray or row:
 
+* :func:`compact` (W0, ``compact_count_kernel`` + ``compact_write_kernel``):
+  ``_compact_trace``'s pack index, the set rows of a mask in ascending
+  order and their count, both left on the device;
 * :func:`primary` (W1, ``primary_kernel``): ``_primary_state`` — the
   lanes' primary rays and the wave's initial state, written into the
   state's buffers (:func:`brickmap_tpu_torch.ops.wave.new_state`);
@@ -15,15 +18,21 @@ per lane:
 * :func:`shade` (W3, ``shade_kernel``): ``_shade_update`` once a bounce,
   reading B2's compacted results through W2's rows and writing the next
   bounce's rays in place; with ``final``, ``_final_accum_update`` and the
-  wave's outputs.
+  wave's outputs;
+* :func:`rescue` (W4, ``rescue_kernel``): ``_cond_rescue``, the exhausted
+  rays re-traced with the escalated budget, all passes of a ray in one
+  thread, their results written back at their rows.
 
-For tensors on the CPU each wrapper runs its plain version
+W2, B2 and W4 read W0's count on the device, so a trace makes no host round
+trip.  For tensors on the CPU each wrapper runs its plain version
 (:mod:`brickmap_tpu_torch.ops.wave`); on any other device than the CPU or
-CUDA it raises.  Each counts its kernel's launches in ``.launches`` and has
-the ``.events`` hook of :mod:`brickmap_tpu_torch.kernels`.
-:func:`primary_args`, :func:`gather_clip_args` and :func:`shade_args` build
-the launchers' ctypes arguments (the host rehearsal of ``csrc/wave.cu``,
-``tests/test_torch_wave_host.py``, drives the launchers with them).
+CUDA it raises.  Each counts its kernel's launches in ``.launches`` (W0's
+two kernels as one) and has the ``.events`` hook of
+:mod:`brickmap_tpu_torch.kernels`.  :func:`compact_args`,
+:func:`primary_args`, :func:`gather_clip_args`, :func:`shade_args` and
+:func:`rescue_args` build the launchers' ctypes arguments (the host
+rehearsals of ``csrc/wave.cu``, ``tests/test_torch_wave_host.py`` and
+``tests/test_torch_compact_host.py``, drive the launchers with them).
 """
 
 from __future__ import annotations
@@ -36,11 +45,14 @@ import torch
 
 from ..config import BrickmapConfig, GridConfig, SunSkyConfig
 from ..ops import sunsky as sunsky_mod
-from ..ops.wave import gather_clip_plain, primary_plain, shade_plain
+from ..ops.wave import compact_plain, gather_clip_plain, primary_plain, \
+    rescue_plain, shade_plain
 from . import build, hooked
+from . import traverse as ktrav
 
-__all__ = ["primary", "gather_clip", "shade", "sky_constants",
-           "primary_args", "gather_clip_args", "shade_args"]
+__all__ = ["compact", "primary", "gather_clip", "shade", "rescue",
+           "sky_constants", "compact_args", "primary_args",
+           "gather_clip_args", "shade_args", "rescue_args"]
 
 _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
 _CAMERA_KEYS = ("position", "direction", "right", "up", "focal_distance",
@@ -51,13 +63,18 @@ def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.wave_primary_launch.argtypes = (
         [i, p, p, p, p] + [p] * 6 + [i, i] + [p] * 9 + [p])
+    lib.wave_compact_launch.argtypes = [i] + [p] * 5 + [p]
     lib.wave_gather_clip_launch.argtypes = (
         [i, p, p, p, p, p] + [f] * 8 + [p] * 5 + [p])
+    lib.wave_rescue_launch.argtypes = (
+        [i] + [p] * 5 + [f] * 8 + [p] * 3 + [i] * 12 + [f, i, i] + [p] * 7
+        + [p])
     lib.wave_shade_launch.argtypes = (
         [i] * 4 + [p] * 4 + [p] * 6 + [p] * 5 + [p] * 4 + [p, p, f]
         + [p] * 5 + [p])
-    for fn in (lib.wave_primary_launch, lib.wave_gather_clip_launch,
-               lib.wave_shade_launch):
+    for fn in (lib.wave_compact_launch, lib.wave_primary_launch,
+               lib.wave_gather_clip_launch, lib.wave_shade_launch,
+               lib.wave_rescue_launch):
         fn.restype = i
 
 
@@ -119,6 +136,62 @@ def sky_constants(sky: SunSkyConfig, device) -> torch.Tensor:
         torch.tensor(scalars, dtype=_F32, device=dev)])
 
 
+# ---- W0 -------------------------------------------------------------------
+
+_SCAN_TILE = 4096   # rows a block of W0 (csrc/wave.cu: kScanTile)
+
+
+def compact_args(mask, limit, parts, out, count, stream) -> tuple:
+    """``wave_compact_launch``'s arguments: ``parts`` holds a count a tile
+    (:func:`compact_tiles` of them), ``out`` and ``count`` are
+    :func:`compact`'s result."""
+    return (mask.shape[0], mask.data_ptr(), _ptr(limit), parts.data_ptr(),
+            out.data_ptr(), count.data_ptr(), stream)
+
+
+def compact_tiles(rows: int) -> int:
+    """W0's tiles (blocks) over ``rows`` rows."""
+    return -(-rows // _SCAN_TILE)
+
+
+def compact(mask, limit=None) -> tuple:
+    """W0: the indices of the set rows of the bool ``mask`` [M] (of its
+    first ``limit`` rows when given: an int32 [1] tensor on the mask's
+    device), in ascending order, as int32 [M] (rows past the count are
+    left unwritten), and their count, int32 [1] — both on the device, no
+    host round trip.  The mask must be 16-byte aligned on the card."""
+    dev = mask.device
+    if dev.type == "cpu":
+        return compact_plain(mask, limit)
+    _device(dev, "compact")
+    m = mask.shape[0]
+    if mask.dtype != torch.bool or mask.dim() != 1 \
+            or not mask.is_contiguous() or mask.data_ptr() % 16:
+        raise ValueError(f"compact: mask must be a contiguous, 16-byte "
+                         f"aligned bool [M] on {dev}")
+    if m > build.MAX_RAYS:
+        raise ValueError(f"compact: at most {build.MAX_RAYS} rows")
+    if limit is not None:
+        ktrav.check_count(limit, dev, "compact")
+    out = torch.empty(m, dtype=_I32, device=dev)
+    count = torch.empty(1, dtype=_I32, device=dev)
+    if not m:
+        return out, count.zero_()
+    parts = torch.empty(compact_tiles(m), dtype=_I32, device=dev)
+    lib = build.load("wave", _bind)
+    with torch.cuda.device(dev):
+        status = hooked(compact, lib.wave_compact_launch, *compact_args(
+            mask, limit, parts, out, count,
+            torch.cuda.current_stream(dev).cuda_stream))
+    build.check(status, "compact_count_kernel/compact_write_kernel")
+    compact.launches += 1
+    return out, count
+
+
+compact.launches = 0
+compact.events = None
+
+
 # ---- W1 -------------------------------------------------------------------
 
 def primary_args(idx, uniforms: dict, camera_arrays: dict, width: int,
@@ -170,39 +243,47 @@ primary.events = None
 
 # ---- W2 -------------------------------------------------------------------
 
-def gather_clip_args(rays_o, rays_d, lanes, grid: GridConfig, off, pos,
+def _box_args(grid: GridConfig) -> tuple:
+    """The world box as W2's and W4's launchers take it."""
+    gs, gh = float(grid.grid_size), float(grid.grid_height)
+    return (*grid.world_max, gs / 2, gs / 2, gh / 2, gh / gs, grid.epsilon)
+
+
+def gather_clip_args(rays_o, rays_d, lanes, count, grid: GridConfig, pos,
                      out: tuple, stream) -> tuple:
     """``wave_gather_clip_launch``'s arguments; ``out`` = the five output
     tensors (:func:`gather_clip`'s result)."""
-    gs, gh = float(grid.grid_size), float(grid.grid_height)
-    return (lanes.shape[0], rays_o.data_ptr(), rays_d.data_ptr(),
-            lanes.data_ptr(), _ptr(off), _ptr(pos), *grid.world_max,
-            gs / 2, gs / 2, gh / 2, gh / gs, grid.epsilon,
-            *(a.data_ptr() for a in out), stream)
+    return (lanes.shape[0], count.data_ptr(), rays_o.data_ptr(),
+            rays_d.data_ptr(), lanes.data_ptr(), _ptr(pos),
+            *_box_args(grid), *(a.data_ptr() for a in out), stream)
 
 
-def gather_clip(rays_o, rays_d, lanes, grid: GridConfig, off=None,
+def gather_clip(rays_o, rays_d, lanes, count, grid: GridConfig,
                 pos=None) -> tuple:
-    """W2: the rays at rows ``lanes`` (int64) of the wave's [2N] buffers,
-    advanced ``off`` [M] along themselves when given (a rescue pass),
-    clipped to the world box: (clipped origins, directions, entry normals,
-    tmin, ok), B2's inputs.  With ``pos`` (the state's [2N] rows), writes
-    each lane's row in ``lanes`` there."""
+    """W2: the rays at rows ``lanes[:count]`` (int32; ``count`` an int32
+    [1] tensor on the device, as :func:`compact` gives them) of the wave's
+    [2N] buffers, clipped to the world box: (clipped origins, directions,
+    entry normals, tmin, ok), B2's inputs, over the capacity of ``lanes``
+    (rows past the count are left unwritten).  With ``pos`` (the state's
+    [2N] rows), writes each lane's row in ``lanes`` there.  The count is
+    read on the device."""
     dev = rays_o.device
     if dev.type == "cpu":
-        return gather_clip_plain(rays_o, rays_d, lanes, grid, off, pos)
+        return gather_clip_plain(rays_o, rays_d, lanes, count, grid, pos)
     _device(dev, "gather_clip")
     m, rows = lanes.shape[0], rays_o.shape[0]
     for name, a, dtype, shape in (
             ("rays_o", rays_o, _F32, (rows, 3)),
             ("rays_d", rays_d, _F32, (rows, 3)),
-            ("lanes", lanes, _I64, (m,)), ("off", off, _F32, (m,)),
-            ("pos", pos, _I32, (rows,))):
+            ("lanes", lanes, _I32, (m,)), ("pos", pos, _I32, (rows,))):
         if a is not None and (a.device != dev or a.dtype != dtype
                               or tuple(a.shape) != shape
                               or not a.is_contiguous()):
             raise ValueError(f"gather_clip: {name} must be contiguous "
                              f"{dtype} {shape} on {dev}")
+    ktrav.check_count(count, dev, "gather_clip")
+    if max(m, rows) > build.MAX_RAYS:
+        raise ValueError(f"gather_clip: at most {build.MAX_RAYS} rows")
 
     def empty(*shape, dtype=_F32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -214,7 +295,7 @@ def gather_clip(rays_o, rays_d, lanes, grid: GridConfig, off=None,
         with torch.cuda.device(dev):
             status = hooked(gather_clip, lib.wave_gather_clip_launch,
                             *gather_clip_args(
-                                rays_o, rays_d, lanes, grid, off, pos, out,
+                                rays_o, rays_d, lanes, count, grid, pos, out,
                                 torch.cuda.current_stream(dev).cuda_stream))
         build.check(status, "gather_clip_kernel")
         gather_clip.launches += 1
@@ -309,3 +390,67 @@ def shade(bounce: int, st: dict, res: dict, cone_u, hemi_u, sun_dir,
 
 shade.launches = 0
 shade.events = None
+
+
+# ---- W4 -------------------------------------------------------------------
+
+_RESCUED = (("hit", torch.bool, ()), ("t", _F32, ()), ("normal", _F32, (3,)),
+            ("request", torch.bool, ()), ("request_pos", _I32, (3,)),
+            ("exhausted", torch.bool, ()), ("resume_t", _F32, ()))
+
+
+def rescue_args(res: dict, rows, count, lanes, rays_o, rays_d, scene, cam,
+                grid: GridConfig, budget: int, passes: int, stream) -> tuple:
+    """``wave_rescue_launch``'s arguments."""
+    return (rows.shape[0], count.data_ptr(), rows.data_ptr(),
+            lanes.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(),
+            *_box_args(grid),
+            *ktrav.walk_args(scene.index_volume, scene, cam, grid, budget),
+            passes, *(res[k].data_ptr() for k, _, _ in _RESCUED), stream)
+
+
+def rescue(res: dict, rows, count, lanes, rays_o, rays_d, scene, cam_brick,
+           grid: GridConfig, budget: int, passes: int) -> None:
+    """W4: re-trace the exhausted rays ``rows[:count]`` (:func:`compact`
+    over ``res["exhausted"]``) of a trace whose rays are ``lanes`` of the
+    wave's buffers ``rays_o``/``rays_d``, with ``budget`` DDA steps, up to
+    ``passes`` times, each pass from 2 voxels before the entry of the cell
+    the last stopped in; their results (B2's keys and ``resume_t``) are
+    written into ``res`` at their rows.  Rays still exhausted after the
+    passes keep the flag.  One launch over the capacity of ``rows``; the
+    count is read on the device, and when it is 0 every thread returns."""
+    dev = rows.device
+    cam = tuple(int(c) for c in cam_brick)
+    if dev.type == "cpu":
+        rescue_plain(res, rows, count, lanes, rays_o, rays_d, scene, cam,
+                     grid, budget, passes)
+        return
+    _device(dev, "rescue")
+    ktrav._check_scene(scene, grid, dev)
+    cap, n_rays = rows.shape[0], rays_o.shape[0]
+    for name, a, dtype, shape in (
+            ("rows", rows, _I32, (cap,)), ("lanes", lanes, _I32, (cap,)),
+            ("rays_o", rays_o, _F32, (n_rays, 3)),
+            ("rays_d", rays_d, _F32, (n_rays, 3)),
+            *((k, res[k], dtype, (cap, *tail)) for k, dtype, tail in
+              _RESCUED)):
+        if a.device != dev or a.dtype != dtype or tuple(a.shape) != shape \
+                or not a.is_contiguous():
+            raise ValueError(f"rescue: {name} must be contiguous {dtype} "
+                             f"{shape} on {dev}")
+    ktrav.check_count(count, dev, "rescue")
+    if max(cap, n_rays) > build.MAX_RAYS:
+        raise ValueError(f"rescue: at most {build.MAX_RAYS} rows")
+    if not cap:
+        return
+    lib = build.load("wave", _bind)
+    with torch.cuda.device(dev):
+        status = hooked(rescue, lib.wave_rescue_launch, *rescue_args(
+            res, rows, count, lanes, rays_o, rays_d, scene, cam, grid,
+            budget, passes, torch.cuda.current_stream(dev).cuda_stream))
+    build.check(status, "rescue_kernel")
+    rescue.launches += 1
+
+
+rescue.launches = 0
+rescue.events = None

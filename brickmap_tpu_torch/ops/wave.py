@@ -1,13 +1,16 @@
-"""Plain torch versions of kernels W1-W3, the sample wave's stages around
+"""Plain torch versions of kernels W0-W4, the sample wave's stages around
 the traversal, and the wave's state.
 
-These are the stages the JAX package leaves to XLA (``_primary_state``,
-the live-lane gather fused with ``aabb_clip``, ``_shade_update`` and
-``_final_accum_update`` of ``brickmap_tpu/render/pathtrace.py``), written
-as the port's eager torch ops did them before the kernels
+These are the stages the JAX package leaves to XLA (``_compact_trace``'s
+pack index, ``_primary_state``, the live-lane gather fused with
+``aabb_clip``, ``_shade_update`` and ``_final_accum_update``, and the
+rescue passes of ``_cond_rescue``, in ``brickmap_tpu/render/pathtrace.py``),
+written as the port's eager torch ops did them before the kernels
 (:mod:`brickmap_tpu_torch.kernels.wave`) replaced them on the card.  They
 run for CPU tensors, and ``chip_smoke.py`` holds the kernels against them
-on the card.
+on the card.  Those that follow a compaction take its count as an int32
+[1] tensor, as the kernels do, and read it on the host (on the card that
+read synchronises; the kernels read it on the device).
 
 The wave's state (:func:`new_state`), for N lanes:
 
@@ -34,12 +37,13 @@ from ..config import BrickmapConfig, GridConfig
 from ..render.camera import primary_rays_from_arrays
 from ..render.sampling import cone_sample, cosine_hemisphere
 from . import sunsky as sunsky_mod
-from .traverse import aabb_clip
+from .traverse import aabb_clip, trace_clipped_rays
 
-__all__ = ["new_state", "primary_plain", "gather_clip_plain", "shade_plain",
-           "RESULT_KEYS"]
+__all__ = ["new_state", "compact_plain", "primary_plain", "gather_clip_plain",
+           "shade_plain", "rescue_plain", "RESULT_KEYS", "RESCUE_KEYS"]
 
 RESULT_KEYS = ("hit", "t", "normal", "request", "request_pos", "exhausted")
+RESCUE_KEYS = RESULT_KEYS + ("resume_t",)
 DEAD_ORIGIN, DEAD_DIRECTION = -10.0, -1.0
 
 
@@ -77,21 +81,80 @@ def primary_plain(idx, uniforms: dict, camera_arrays: dict, width: int,
         st[k].zero_()
 
 
-def gather_clip_plain(rays_o, rays_d, lanes, grid: GridConfig, off=None,
-                      pos=None) -> tuple:
-    """W2: the rays at rows ``lanes`` (advanced ``off`` along themselves
-    when given, as a rescue pass resumes them), clipped to the world box:
-    B2's five inputs (clipped origins, directions, entry normals, tmin,
-    ok).  With ``pos`` (the state's), writes each lane's row in the list."""
+def compact_plain(mask, limit=None) -> tuple:
+    """W0: the indices of the set rows of ``mask`` [M] (of its first
+    ``limit`` rows when given, an int32 [1] tensor), ascending, as int32
+    [M] (rows past the count unwritten), and their count, int32 [1]."""
+    m = mask if limit is None else mask[:int(limit)]
+    rows = torch.nonzero(m).squeeze(1).int()
+    out = torch.empty(mask.shape[0], dtype=torch.int32, device=mask.device)
+    out[:rows.shape[0]] = rows
+    return out, torch.tensor([rows.shape[0]], dtype=torch.int32,
+                             device=mask.device)
+
+
+def _clip_rows(rays_o, rays_d, lanes, grid: GridConfig, off=None) -> tuple:
+    """The rays at rows ``lanes``, advanced ``off`` along themselves when
+    given, clipped to the world box: B2's five inputs."""
     o, d = rays_o[lanes], rays_d[lanes]
     if off is not None:
         o = o + d * off[:, None]
     ok, tminn, clipped, entry_normal = aabb_clip(o, d, grid)
+    return clipped, d, entry_normal, tminn, ok
+
+
+def gather_clip_plain(rays_o, rays_d, lanes, count, grid: GridConfig,
+                      pos=None) -> tuple:
+    """W2: the rays at rows ``lanes[:count]``, clipped to the world box:
+    B2's five inputs (clipped origins, directions, entry normals, tmin, ok)
+    over the capacity of ``lanes``, rows past the count unwritten.  With
+    ``pos`` (the state's), writes each lane's row in the list."""
+    m, cap = int(count), lanes.shape[0]
+    rows = lanes[:m].long()
+    parts = _clip_rows(rays_o, rays_d, rows, grid)
     if pos is not None:
-        pos[lanes] = torch.arange(lanes.shape[0], dtype=torch.int32,
-                                  device=lanes.device)
-    return tuple(a.contiguous() for a in (clipped, d, entry_normal, tminn,
-                                          ok))
+        pos[rows] = torch.arange(m, dtype=torch.int32, device=lanes.device)
+    out = []
+    for a in parts:
+        full = torch.empty((cap, *a.shape[1:]), dtype=a.dtype,
+                           device=a.device)
+        full[:m] = a
+        out.append(full)
+    return tuple(out)
+
+
+def rescue_plain(res: dict, rows, count, lanes, rays_o, rays_d, scene, cam,
+                 grid: GridConfig, budget: int, passes: int,
+                 stats: dict | None = None) -> None:
+    """W4: re-trace the exhausted rays ``rows[:count]`` of a trace's
+    compacted list (W0 over ``res["exhausted"]``; lane ``lanes[row]``) with
+    ``budget`` DDA steps, up to ``passes`` times, each pass resuming 2
+    voxels before the entry of the cell the last one stopped in (the marched
+    prefix is known empty); their results (:data:`RESCUE_KEYS`) are written
+    into ``res`` at their rows.  Rays still exhausted after the passes keep
+    the flag.  With ``stats``, adds the passes' DDA steps (``steps``) and the
+    union of the index words and brick rows they read (``cells_read``,
+    ``rows_read``, as :func:`~.traverse.trace_clipped_rays` marks them)."""
+    idx = rows[:int(count)].long()
+    for _ in range(passes):
+        if idx.numel() == 0:
+            break
+        off = torch.clamp(res["resume_t"][idx] - 2.0, min=0.0)
+        r2 = trace_clipped_rays(
+            *_clip_rows(rays_o, rays_d, lanes[idx].long(), grid, off),
+            scene.index_volume, scene.pool_words, scene.pool_base, cam, grid,
+            max_iters=budget)
+        if stats is not None:
+            stats["steps"] = stats.get("steps", 0) + int(
+                r2["ray_iters"].sum())
+            for k in ("cells_read", "rows_read"):
+                stats[k] = stats[k] | r2[k] if k in stats else r2[k]
+        r2["t"] = torch.where(r2["hit"], r2["t"] + off, 0.0)
+        r2["resume_t"] = torch.where(r2["exhausted"], r2["resume_t"] + off,
+                                     0.0)
+        for k in RESCUE_KEYS:
+            res[k][idx] = r2[k]
+        idx = idx[r2["exhausted"]]
 
 
 def _full_results(st: dict, res: dict) -> dict:

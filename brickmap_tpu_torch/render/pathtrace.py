@@ -5,20 +5,23 @@ sample per pixel) iterates bounces to completion with masked lanes, the same
 Monte Carlo estimator as the reference's persistent-thread kernels
 (``kernel.cu:154-346``):
 
-  primary rays (W1) -> per bounce: [gather + clip the live extension and
-  shadow rays (W2) -> trace (B2) -> shade + NEE (W3)]
-  -> final shadow trace (W2, B2) -> accumulate (W3)
+  primary rays (W1) -> per bounce: [compact the live extension and shadow
+  rays (W0) -> gather + clip them (W2) -> trace (B2) -> compact the
+  exhausted ones (W0) -> rescue them (W4) -> shade + NEE (W3)]
+  -> final shadow trace (W0, W2, B2, W0, W4) -> accumulate (W3)
 
-The kernels are :mod:`brickmap_tpu_torch.kernels.wave` (W1-W3, one launch
-each a stage) and :func:`brickmap_tpu_torch.kernels.traverse.trace_clipped`
-(B2); for a wave on the CPU each runs its plain torch version.  The wave's
-state lives in the buffers of :func:`~brickmap_tpu_torch.ops.wave.
-new_state`: lane i's extension ray at row i of [2N] ray buffers, its shadow
-ray at row N + i.  Where the JAX package packed live lanes into a static
-ladder of bucket sizes (``_ladder_switch``, a fixed-shape device for XLA),
-the port compacts with dynamic shapes (``nonzero``): one host sync per
-trace, plus one per rescue check.  Per-lane results are the same: every ray
-is traced independently.
+The kernels are :mod:`brickmap_tpu_torch.kernels.wave` (W0-W4) and
+:func:`brickmap_tpu_torch.kernels.traverse.trace_clipped` (B2); for a wave
+on the CPU each runs its plain torch version.  The wave's state lives in
+the buffers of :func:`~brickmap_tpu_torch.ops.wave.new_state`: lane i's
+extension ray at row i of [2N] ray buffers, its shadow ray at row N + i.
+Where the JAX package packs live lanes into a static ladder of bucket
+sizes chosen on the device (``_ladder_switch``) and gates its rescue with
+``lax.cond``, the port's W0 leaves each compaction's count on the device,
+where W2, B2 and W4 read it: on the card a wave makes no host round trip
+between W1 and the return of its final W3.  Per-lane results are the
+same: every ray is traced independently, every live one (no bucket drops
+any; ROADMAP.md §C2).
 
 Shading model = the reference's: pure diffuse albedo 1, sun NEE with cone
 sampling + 1e-5 radiance scale (kernel.cu:274-279), cosine-weighted bounce
@@ -42,8 +45,6 @@ from .sampling import draw_wave_uniforms
 __all__ = ["render_wave", "wave_for_indices", "render_frame", "film_init",
            "film_add", "tonemap", "rescue_budget"]
 
-_RESULT_KEYS = ("hit", "t", "normal", "request", "request_pos", "exhausted",
-                "resume_t")
 RESCUE_TOP_STEPS = 4096   # the escalated top-level budget (_rescue_cfg)
 RESCUE_PASSES = 4         # resume-from-t passes before a ray counts exhausted
 
@@ -74,41 +75,23 @@ def rescue_budget(cfg: BrickmapConfig) -> int:
         r.max_brick_steps + r.max_byte_steps)
 
 
-def _rescue(res: dict, st: dict, lanes, scene, cam_brick,
-            cfg: BrickmapConfig) -> dict:
-    """Re-trace exhausted rays with the escalated budget, resuming 2 voxels
-    before the entry of the cell each one stopped in (its marched prefix is
-    known empty).  Up to RESCUE_PASSES passes; rays still exhausted after
-    them keep the flag and are counted by the wave."""
-    budget = rescue_budget(cfg)
-    for _ in range(RESCUE_PASSES):
-        idx = torch.nonzero(res["exhausted"]).squeeze(1)
-        if idx.numel() == 0:
-            break
-        off = torch.clamp(res["resume_t"][idx] - 2.0, min=0.0)
-        r2 = ktrav.trace_clipped(
-            kwave.gather_clip(st["rays_o"], st["rays_d"], lanes[idx],
-                              cfg.grid, off=off),
-            scene, cam_brick, cfg.grid, budget)
-        r2["t"] = torch.where(r2["hit"], r2["t"] + off, 0.0)
-        r2["resume_t"] = torch.where(r2["exhausted"], r2["resume_t"] + off,
-                                     0.0)
-        for k in _RESULT_KEYS:
-            res[k][idx] = r2[k]
-    return res
-
-
 def _trace_live(st: dict, scene, cam_brick, cfg: BrickmapConfig) -> dict:
-    """Trace the wave's live rays: compact them (``nonzero``), gather and
-    clip them with W2 (which records each lane's row for W3), trace them
-    with B2 and rescue the exhausted ones.  Returns B2's results over the
-    compacted rays."""
-    lanes = torch.nonzero(st["live"]).squeeze(1)
-    inputs = kwave.gather_clip(st["rays_o"], st["rays_d"], lanes, cfg.grid,
-                               pos=st["pos"])
-    res = ktrav.trace_clipped(inputs, scene, cam_brick, cfg.grid,
+    """Trace the wave's live rays with no host round trip: compact them
+    (W0: the lanes and their count stay on the device), gather and clip
+    them with W2 (which records each lane's row for W3), trace them with
+    B2, compact the exhausted ones (W0) and rescue those in place (W4: up
+    to RESCUE_PASSES passes with the escalated budget; rays still exhausted
+    after them keep the flag and are counted by the wave).  Returns B2's
+    results over the compacted rays (rows past the count unwritten)."""
+    lanes, count = kwave.compact(st["live"])
+    inputs = kwave.gather_clip(st["rays_o"], st["rays_d"], lanes, count,
+                               cfg.grid, pos=st["pos"])
+    res = ktrav.trace_clipped(inputs, count, scene, cam_brick, cfg.grid,
                               cfg.render.trace_budget)
-    return _rescue(res, st, lanes, scene, cam_brick, cfg)
+    rows, n_rows = kwave.compact(res["exhausted"], count)
+    kwave.rescue(res, rows, n_rows, lanes, st["rays_o"], st["rays_d"], scene,
+                 cam_brick, cfg.grid, rescue_budget(cfg), RESCUE_PASSES)
+    return res
 
 
 @functools.lru_cache(maxsize=8)

@@ -10,7 +10,7 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels (nvcc, all sources at once, rebuilt even where a
    build exists) and the native heightfield (g++); print the ptxas summary,
-   and fail if B1's, B2's, B3's, W1-W3's or R1-R2's build has a stack frame
+   and fail if B1's, B2's, B3's, W0-W4's or R1-R2's build has a stack frame
    or spills;
 3. kernel B1 (brick DDA) against its plain torch version, every output
    equal (``t`` included): 1M random rays at densities 0.12, 0.5 and 0.9,
@@ -39,19 +39,26 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    9-viewpoint benchmark at 1920x1080, 3 bounces (1 warm-up + 1 timed wave
    per view), with B2 held against its plain version at the main path's
    shape (view 0's primary rays) and timed there beside its bound, with
-   its SIMD efficiency and ptxas line.  Then the wave kernels W1-W3 at
-   view 0's full shape (2,073,600 lanes in tile order): W1, W2 before each
-   of the wave's 5 traces, W3 after each (4 bounces and the final pass
-   through the tile permutation), each from the same state as its plain
-   version and equal to it (state, B2's inputs and outputs; NaN equal to
-   NaN; 0 mask flips), each timed alone beside its bound (W1, W2 at bounces
-   0 and 1, W3 at bounces 0 and 1 and the final pass).  Each wave must
-   launch B2 at least 5 times (4 bounce traces + the final shadow pass)
-   unless the plain version finds that none of its primary rays hits, and
-   W1, W2 and W3 at least once; no plain version may run.  Last, view 0's
-   wave through W1-W3 against the same wave with their plain versions
-   swapped in: rgb within rtol 1e-4 / atol 1e-5, count, requests, traced
-   and exhausted (0) equal;
+   its SIMD efficiency and ptxas line.  Then the wave kernels W0-W4 at
+   view 0's full shape (2,073,600 lanes in tile order): W1, then for each
+   of the wave's 5 traces W0 over the live rows, W2, B2, W0 over the
+   exhausted rays and W4, then W3 (4 bounces and the final pass through
+   the tile permutation), each from the same state as its plain version
+   and equal to it (state, W0's indices and count, B2's inputs and
+   outputs, W4's results; NaN equal to NaN; 0 mask flips), each timed
+   alone beside its bound (W1, W0 and W2 at bounces 0 and 1 with
+   ``torch.nonzero`` beside W0, W3 at bounces 0 and 1 and the final
+   pass).  W0 and W4 again where rays exhaust: view 0's primaries traced
+   with a starved budget, rescued with the wave's budget (none left) and
+   with a starved one (some left), against the plain rescue passes, and
+   W4 timed there.  One view-0 wave under
+   ``torch.cuda.set_sync_debug_mode("error")``: no synchronising call.
+   Each wave of the benchmark must launch B2, W2, W3 and W4 5 times, W0
+   10 and W1 once; no plain version may run.  Last, whole waves through
+   W0-W4 against the same waves with their plain versions swapped in
+   (view 0, view 7 whose primaries all miss, and view 0 with a starved
+   trace budget): rgb within rtol 1e-4 / atol 1e-5, count, requests,
+   traced and exhausted (0) equal;
 6. kernels B3 (segment recorder), B4f and B4b (the visited voxels' values
    read from the pool fields, and their cotangents added back with
    atomics) against their plain versions on the phase-4 terrain, resident
@@ -90,7 +97,7 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    benchmark``: view 0, 1920x1080, 3 bounces, queue 1024, segments from 16
    rows, 48 waves, each wave's requests serviced before the next).  B2 is
    held against its plain version on wave 0's primary rays over the cold
-   scene; every wave must launch B2 and W1-W3, no plain version may run, no
+   scene; every wave must launch B2 and W0-W4, no plain version may run, no
    ray may
    exhaust its budget and no wave may upload more than 1024 bricks; the
    uploads must equal the resident counts and the loaded index words, no
@@ -105,17 +112,19 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    3 bounces, view 0's camera orbiting a point 300 voxels ahead of it; a
    client thread fetches ``/frame.png`` and ``/stats.json`` from the served
    page and posts one fly-camera move.  Three PNGs and ``frames`` 3, B2 and
-   W1-W3 in every wave, no plain version, 0 exhausted, the post applied
+   W0-W4 in every wave, no plain version, 0 exhausted, the post applied
    once and followed by a film reset, and the trace file naming
    ``traverse_kernel``.  Then one view-0 wave under ``torch.profiler``: its
    kernel launches, device-to-host (synchronising) and pageable
    host-to-device copies, the device operations by time and the device's
-   idle share of the wave;
+   idle share of the wave: at most 150 launches, no device-to-host copy
+   and no stream synchronise (the wave makes no host round trip), no
+   pageable host-to-device copy;
 10. the sharded paths at world size 1 over NCCL: ``render_wave_sharded``
    equal to ``wave_for_indices`` on the same pixels and uniforms bit for
    bit; ``render_frame`` in 61,440-ray chunks equal to one
    ``render_wave`` with the same per-pixel uniforms (0 exhausted, the same
-   requests; W1-W3 in every chunk, no plain version); ``inverse_train_step_sparse`` at 2,073,600 rays, K = 8 equal
+   requests; W0-W4 in every chunk, no plain version); ``inverse_train_step_sparse`` at 2,073,600 rays, K = 8 equal
    to ``l2_loss_and_grads_sparse`` (loss equal, gradients within 1e-6 of
    their largest value) through B3, R1, B4f, R2 and B4b;
    ``run_scaling_benchmark``
@@ -154,6 +163,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 DDA_STEP_OPS = 12
 FULL_WORLD_BRICKS = 8_663_747  # non-empty bricks of the 4096^2 x 512 world
 L2_FLUSH_BYTES = 256 << 20     # written between timed launches: 5x the L2
+STARVED_STEPS = 16             # a trace budget that leaves rays exhausted
 
 
 def fail(msg: str) -> None:
@@ -324,7 +334,7 @@ def wave_bytes(kind: str, n: int, live: int) -> int:
     """Bytes a wave kernel must move: W1 per lane reads idx, stratum (8 B
     each), jitter, lens (8 each) and writes both rows of the ray buffers
     (48), live (2), the position map (8), accum, sh_color (24), req_mask
-    (1), req_pos (12); W2 per ray reads its lane (8) and ray (24) and
+    (1), req_pos (12); W2 per ray reads its lane (4) and ray (24) and
     writes the five inputs of B2 (41) and its row (4); W3 per lane reads
     live (2), the extension ray (24), sh_color, accum (24), the request
     (13) and its four uniforms (16) and writes the map (8), both rays
@@ -335,7 +345,7 @@ def wave_bytes(kind: str, n: int, live: int) -> int:
     if kind == "W1":
         return n * (32 + 95)
     if kind == "W2":
-        return n * (32 + 45)
+        return n * (28 + 45)
     if kind == "W3":
         return n * (79 + 95) + live * 35
     return n * (55 + 37) + live * 35
@@ -760,7 +770,7 @@ def main() -> int:
               f"{ptxas_line('traverse')}", flush=True)
         del got, want
 
-        # W1-W3 at the main path's shape: view 0's wave of 2,073,600 lanes
+        # W0-W4 at the main path's shape: view 0's wave of 2,073,600 lanes
         # in tile order, every stage on both sides from the same state,
         # the kernel's and the plain version's outputs equal.
         n = w * h
@@ -808,32 +818,90 @@ def main() -> int:
         print(f"  W1 at {n} lanes: state equal to the plain version's "
               f"(rays, live, map, accum, requests, counters)", flush=True)
         flips = 0
+        w0rec = {}     # shape -> (rows, set rows, ms, plain ms, nonzero ms)
+        w4_err = [0.0]
+        rescue_args = pathtrace.rescue_budget(cfg), pathtrace.RESCUE_PASSES
+        cam_b = cam0.brick_position
+
+        def w0_equal(tag, mask, limit=None):
+            """W0 against its plain version (``torch.nonzero``): the count
+            and the indices below it equal."""
+            got = kwave.compact(mask, limit)
+            want = owave.compact_plain(mask, limit)
+            m = int(want[1])
+            if not (torch.equal(got[1], want[1])
+                    and torch.equal(got[0][:m], want[0][:m])):
+                fail(f"W0 {tag}: count {int(got[1])} against {m}, or the "
+                     f"indices below it differ")
+            return got
+
+        def w4_equal(tag, res, rows, n_rows, lanes, m, budget_, passes,
+                     stats=None):
+            """W4 on copies of B2's results against the plain rescue
+            passes: every key equal on every row below the trace's count
+            ``m``; returns the plain version's results."""
+            got = {k: v.clone() for k, v in res.items()}
+            want = {k: v.clone() for k, v in res.items()}
+            rays = st["rays_o"], st["rays_d"]
+            kwave.rescue(got, rows, n_rows, lanes, *rays, world, cam_b,
+                         cfg.grid, budget_, passes)
+            owave.rescue_plain(want, rows, n_rows, lanes, *rays, world,
+                               cam_b, cfg.grid, budget_, passes, stats)
+            torch.cuda.synchronize()
+            for k in owave.RESCUE_KEYS:
+                bad = state_rows_differ(got[k][:m], want[k][:m])
+                if bad:
+                    fail(f"W4 {tag}: {k} differs on {bad} rows")
+                if m and got[k].is_floating_point():
+                    w4_err[0] = max(w4_err[0], float(
+                        (got[k][:m] - want[k][:m]).abs().max()))
+            return want
+
         for bounce in range(nb + 2):
             final = bounce == nb + 1
-            lanes = torch.nonzero(st["live"]).squeeze(1)
-            m = lanes.shape[0]
-            inp = kwave.gather_clip(st["rays_o"], st["rays_d"], lanes,
+            shape = "final" if final else f"bounce {bounce}"
+            lanes, count = w0_equal(f"trace {bounce}", st["live"])
+            m = int(count)
+            if bounce <= 1:
+                live = st["live"]
+                w0rec[shape] = (
+                    live.shape[0], m,
+                    alone_ms(kwave.compact, lambda: kwave.compact(live), 5),
+                    host_ms(lambda: owave.compact_plain(live)),
+                    cuda_ms(lambda: torch.nonzero(live), 5))
+            inp = kwave.gather_clip(st["rays_o"], st["rays_d"], lanes, count,
                                     cfg.grid, pos=st["pos"])
             inp_p = owave.gather_clip_plain(ref["rays_o"], ref["rays_d"],
-                                            lanes, cfg.grid, pos=ref["pos"])
+                                            lanes, count, cfg.grid,
+                                            pos=ref["pos"])
             torch.cuda.synchronize()
             keys = ("clipped", "dirs", "entry_normal", "tminn", "ok")
-            w_equal(f"W2 trace {bounce}", dict(zip(keys, inp), pos=st[
-                "pos"]), dict(zip(keys, inp_p), pos=ref["pos"]))
-            print(f"  W2 trace {bounce}: {m} rays; B2's five inputs and the "
-                  f"lanes' rows equal to aabb_clip's (plain)", flush=True)
-            shape = "final" if final else f"bounce {bounce}"
+            w_equal(f"W2 trace {bounce}", dict(
+                zip(keys, (a[:m] for a in inp)), pos=st["pos"]), dict(
+                zip(keys, (a[:m] for a in inp_p)), pos=ref["pos"]))
             if bounce <= 1:
                 wrec[("W2", shape)] = (
                     alone_ms(kwave.gather_clip, lambda: kwave.gather_clip(
-                        st["rays_o"], st["rays_d"], lanes, cfg.grid,
+                        st["rays_o"], st["rays_d"], lanes, count, cfg.grid,
                         pos=st["pos"]), 5),
                     host_ms(lambda: owave.gather_clip_plain(
-                        ref["rays_o"], ref["rays_d"], lanes, cfg.grid,
+                        ref["rays_o"], ref["rays_d"], lanes, count, cfg.grid,
                         pos=ref["pos"])), *w_bound("W2", m))
-            res = ktrav.trace_clipped(inp, world, cam0.brick_position,
-                                      cfg.grid, budget)
+            res = ktrav.trace_clipped(inp, count, world, cam_b, cfg.grid,
+                                      budget)
             del inp, inp_p
+            rows, n_rows = w0_equal(f"exhausted {bounce}", res["exhausted"],
+                                    count)
+            w4_equal(f"trace {bounce}", res, rows, n_rows, lanes, m,
+                     *rescue_args)
+            kwave.rescue(res, rows, n_rows, lanes, st["rays_o"],
+                         st["rays_d"], world, cam_b, cfg.grid, *rescue_args)
+            print(f"  W0, W2, W4 trace {bounce}: {m} rays of "
+                  f"{st['live'].shape[0]} rows, {int(n_rows)} exhausted; "
+                  f"W0's indices and count equal to torch.nonzero's, B2's "
+                  f"five inputs and the lanes' rows equal to aabb_clip's "
+                  f"(plain), W4 equal to the plain rescue passes",
+                  flush=True)
             cone = None if final else u5["cone"][bounce]
             hemi = None if final else u5["hemi"][bounce]
             dst = perm5 if final else None
@@ -884,12 +952,97 @@ def main() -> int:
             print(f"  {kind} alone at {shape}: {ms:.4f} ms (plain "
                   f"{pms:.3f} ms), bound {bms:.4f} ms by {by} "
                   f"({100 * bms / ms:.1f}%)", flush=True)
+        for shape, (rows_, set_, ms, pms, nz_ms) in w0rec.items():
+            bms, by = bound(rows_ + 4 * set_, 0)
+            print(f"  W0 alone at {shape} ({rows_} rows, {set_} set): "
+                  f"{ms:.4f} ms (plain {pms:.3f} ms, torch.nonzero "
+                  f"{nz_ms:.4f} ms), bound {bms:.4f} ms by {by} "
+                  f"({100 * bms / ms:.1f}%)", flush=True)
         print(f"  W1-W3: 0 mask flips, max |kernel - plain| {w_err[0]}; "
               f"ptxas {ptxas_line('wave')}", flush=True)
-        del st, ref, u5
+
+        # W0 and W4 where rays do exhaust: view 0's primaries traced with a
+        # starved budget, then rescued with the wave's budget (every ray
+        # rescued) and with a starved one (rays still exhausted after the
+        # passes), each against the plain passes.
+        kwave.primary(perm5, u5, arrays, w, h, st)
+        lanes, count = w0_equal("starved primaries", st["live"])
+        m = int(count)
+        res = ktrav.trace_clipped(
+            kwave.gather_clip(st["rays_o"], st["rays_d"], lanes, count,
+                              cfg.grid), count, world, cam_b, cfg.grid,
+            STARVED_STEPS)
+        rows, n_rows = w0_equal("starved exhausted", res["exhausted"], count)
+        n_exh = int(n_rows)
+        w4_stats = {}
+        for tag, rb in (("the wave's rescue budget", rescue_args[0]),
+                        ("a starved rescue budget", STARVED_STEPS)):
+            want = w4_equal(tag, res, rows, n_rows, lanes, m, rb,
+                            rescue_args[1],
+                            w4_stats if rb == rescue_args[0] else None)
+            left = int(want["exhausted"][:m].sum())
+            print(f"  W4 on {n_exh} of {m} primaries exhausted at "
+                  f"{STARVED_STEPS} steps, {tag} ({rb} steps, "
+                  f"{rescue_args[1]} passes): {left} still exhausted; "
+                  f"every key equal to the plain passes'", flush=True)
+            if not n_exh or (left == 0) != (rb == rescue_args[0]):
+                fail(f"W4 {tag}: {n_exh} exhausted, {left} left")
+            del want
+        saved = {k: v.clone() for k, v in res.items()}
+
+        def run_w4():
+            for k, v in saved.items():
+                res[k].copy_(v)
+            kwave.rescue(res, rows, n_rows, lanes, st["rays_o"],
+                         st["rays_d"], world, cam_b, cfg.grid, *rescue_args)
+
+        w4_ms = alone_ms(kwave.rescue, run_w4, 3)
+        w4_plain_ms = host_ms(lambda: owave.rescue_plain(
+            {k: v.clone() for k, v in saved.items()}, rows, n_rows, lanes,
+            st["rays_o"], st["rays_d"], world, cam_b, cfg.grid,
+            *rescue_args), reps=1)
+        # Per rescued ray: its row and lane (8 B), ray (24), resume_t (4)
+        # read, B2's seven keys (35) written; then each distinct index word
+        # (4 B) and brick row (64 B) its passes read; 12 operations a step.
+        w4_bytes = n_exh * 71 + 4 * int(w4_stats["cells_read"].sum()) \
+            + 64 * int(w4_stats["rows_read"].sum())
+        w4_bound, w4_by = bound(w4_bytes, w4_stats["steps"] * DDA_STEP_OPS)
+        print(f"  W4 alone on the {n_exh} rays: {w4_ms:.4f} ms (plain "
+              f"{w4_plain_ms:.1f} ms), {w4_stats['steps']} DDA steps, "
+              f"{w4_bytes} bytes -> bound {w4_bound:.4f} ms by {w4_by} "
+              f"({100 * w4_bound / w4_ms:.1f}%)", flush=True)
+        del res, saved
+
+        # One view-0 wave with every synchronising call an error: no host
+        # round trip between W1 and the final W3.  The mode must refuse a
+        # nonzero, or it checks nothing.  A first wave of a frame size
+        # copies its tile order and the sky constants to the card once.
+        pathtrace.render_wave(world, arrays, cam_b, cfg, w, h, generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            try:
+                torch.nonzero(st["live"])
+                fail("set_sync_debug_mode('error') let a nonzero through")
+            except RuntimeError:
+                pass
+            try:
+                got = pathtrace.render_wave(world, arrays, cam_b, cfg, w, h,
+                                            generator=gen)
+            except RuntimeError as e:
+                fail(f"a synchronising call inside the wave: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f"  one view-0 wave under set_sync_debug_mode('error'): no "
+              f"synchronising call; {int(got[2]['traced_rays'])} rays "
+              f"traced, {int(got[2]['exhausted_rays'])} exhausted",
+              flush=True)
+        del st, ref, u5, got
 
         # Count plain-version calls during the main path: there must be none.
-        plain_calls = {"B1": 0, "B2": 0, "W1": 0, "W2": 0, "W3": 0}
+        plain_calls = {"B1": 0, "B2": 0, "W0": 0, "W1": 0, "W2": 0, "W3": 0,
+                       "W4": 0}
 
         def counting(mod, attr, key, calls=None):
             """Count calls of ``mod.attr`` in ``calls`` (by default the
@@ -905,73 +1058,52 @@ def main() -> int:
             return mod, attr, f
 
         def count_wave_plain(calls):
-            """Count the plain W1-W3 the wrappers would run: the saved
+            """Count the plain W0-W4 the wrappers would run: the saved
             (module, name, function) triples to put back."""
-            return [counting(kwave, "primary_plain", "W1", calls),
+            return [counting(kwave, "compact_plain", "W0", calls),
+                    counting(kwave, "primary_plain", "W1", calls),
                     counting(kwave, "gather_clip_plain", "W2", calls),
-                    counting(kwave, "shade_plain", "W3", calls)]
+                    counting(kwave, "shade_plain", "W3", calls),
+                    counting(kwave, "rescue_plain", "W4", calls)]
 
         def restore(saved):
             for mod, attr, f in saved:
                 setattr(mod, attr, f)
 
         def w_launches():
+            """W1, W2, W3, W0, W4 launches so far."""
             return [kwave.primary.launches, kwave.gather_clip.launches,
-                    kwave.shade.launches]
+                    kwave.shade.launches, kwave.compact.launches,
+                    kwave.rescue.launches]
 
         saved_plain = [counting(ktrav, "trace_rays", "B2"),
                        counting(ktrav, "trace_clipped_rays", "B2"),
                        counting(kbrick, "intersect_brick_plain", "B1")]
         saved_plain += count_wave_plain(plain_calls)
         waves = []        # per wave: (view, B2 launches, W launches)
-        primaries = []    # the wave's raw primary rays
         orig_wave = pathtrace.render_wave
-        orig_trace_live = pathtrace._trace_live
+        traces = nb + 2   # bounce traces and the final shadow trace
 
         def counted_wave(*a, **k):
             before = ktrav.trace.launches
             w_before = w_launches()
-            primaries.clear()
             for f in (ktrav.trace, kwave.primary, kwave.gather_clip,
-                      kwave.shade):
+                      kwave.shade, kwave.compact, kwave.rescue):
                 f.events.clear()          # launches of this wave only
             out = orig_wave(*a, **k)
             launches = ktrav.trace.launches - before
             wl = [x - y for x, y in zip(w_launches(), w_before)]
-            if min(wl) < 1:
-                fail(f"a wave did not launch every wave kernel: W1-W3 {wl}")
-            traced = int(out[2]["traced_rays"])
-            if launches < 5:
-                # Only a wave whose primary rays all miss may stop early:
-                # hold that against the plain version on those rays.
-                # The plain trace clips the raw rows itself (aabb_clip),
-                # so this check does not rest on W2.
-                o, d = primaries[0]
-                ref = trace_rays(o, d, world.index_volume, world.pool_words,
-                                 world.pool_base, a[2], cfg.grid,
-                                 max_iters=cfg.render.trace_budget)
-                hits = int(ref["hit"].sum())
-                if hits or traced != w * h:
-                    fail(f"a wave launched B2 {launches} times, traced "
-                         f"{traced} rays; the plain version finds {hits} "
-                         f"primary hits")
-                print(f"  a wave with {launches} B2 launch(es): the plain "
-                      f"version finds 0 hits among its {o.shape[0]} primary "
-                      f"rays", flush=True)
+            # Every trace launches W0 twice, W2, B2, W4 and W3 once, whether
+            # or not a ray is live: the counts stay on the device.
+            if launches != traces or wl != [1, traces, traces, 2 * traces,
+                                            traces]:
+                fail(f"a wave launched B2 {launches} times and W1, W2, W3, "
+                     f"W0, W4 {wl} times, not {traces} and [1, {traces}, "
+                     f"{traces}, {2 * traces}, {traces}]")
             waves.append((len(images), launches, wl))
             return out
 
-        def first_trace(st, *a, **k):
-            # W1 writes lane i's primary ray at row i; copies, since W3
-            # rewrites the rows in place.
-            if not primaries:
-                n = st["accum"].shape[0]
-                primaries.append((st["rays_o"][:n].clone(),
-                                  st["rays_d"][:n].clone()))
-            return orig_trace_live(st, *a, **k)
-
         pathtrace.render_wave = counted_wave
-        pathtrace._trace_live = first_trace
         # View -> image statistics of its timed wave; while a view renders,
         # len(images) is its index.
         images = {}
@@ -995,19 +1127,20 @@ def main() -> int:
                   f"finite {finite}", flush=True)
 
         for f in (ktrav.trace, kbrick.trace_single_brick, kwave.primary,
-                  kwave.gather_clip, kwave.shade):
+                  kwave.gather_clip, kwave.shade, kwave.compact,
+                  kwave.rescue):
             f.launches = 0
         cams = benchmark.benchmark_cameras()
         try:
             with benchmark.KernelTimes(
-                    B2=ktrav.trace, W1=kwave.primary, W2=kwave.gather_clip,
-                    W3=kwave.shade) as timer:
+                    B2=ktrav.trace, W0=kwave.compact, W1=kwave.primary,
+                    W2=kwave.gather_clip, W3=kwave.shade,
+                    W4=kwave.rescue) as timer:
                 out = benchmark.run_forward_benchmark(
                     world, cfg, waves_per_view=1, warmup_waves=1,
                     verbose=False, on_view=on_view, on_wave=on_wave)
         finally:
             pathtrace.render_wave = orig_wave
-            pathtrace._trace_live = orig_trace_live
             restore(saved_plain)
         b2_launches = ktrav.trace.launches
         w5_launches = w_launches()
@@ -1016,17 +1149,13 @@ def main() -> int:
         print(f"  aggregate {out['mrays_per_s']:.3f} Mrays/s over "
               f"{out['total_rays']} rays in {out['total_seconds']:.3f} s on "
               f"{out['device']}; B2 launches {b2_launches}, per wave "
-              f"{per_wave}; W1, W2, W3 launches {w5_launches}, per wave "
+              f"{per_wave}; W1, W2, W3, W0, W4 launches {w5_launches}, "
+              f"per wave "
               f"{[x for _, _, x in waves]}")
         if out["total_exhausted"] != 0:
             fail(f"{out['total_exhausted']} rays exhausted")
         if any(plain_calls.values()):
             fail(f"plain versions ran on the main path: {plain_calls}")
-        # Views 0-2 look down on the terrain from inside the world: each of
-        # their waves traces every bounce and the final shadow pass.
-        for vi, n, _ in waves:
-            if vi <= 2 and n < 5:
-                fail(f"view {vi}: a wave launched B2 {n} times, not >= 5")
         for vi, (m, s, finite, _) in images.items():
             if not finite:
                 fail(f"view {vi}: image not finite")
@@ -1044,7 +1173,7 @@ def main() -> int:
             "launches": b2_launches, "max_abs_err": b2_err[0], "ms": b2_ms,
             "plain_ms": b2_plain_ms, "bound_ms": b2_bound, "bound_by": b2_by,
             "library_ms": None}
-        # W1-W3 have no Pallas twin: "replaces" names the JAX function XLA
+        # W0-W4 have no Pallas twin: "replaces" names the JAX function XLA
         # fuses; each at its first shape of view 0's wave.
         for kind, name, shape, replaces, launches in (
                 ("W1", "primary (W1)", "view 0",
@@ -1060,36 +1189,73 @@ def main() -> int:
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": w_err[0], "ms": ms, "plain_ms": pms,
                 "bound_ms": bms, "bound_by": by, "library_ms": None}
+        # W0 at bounce 0's live mask (2N rows, N set): 1 B read a row, 4 B
+        # written a set row; the library call is torch.nonzero.
+        rows_, set_, ms, pms, nz_ms = w0rec["bounce 0"]
+        bms, by = bound(rows_ + 4 * set_, 0)
+        records["W0"] = {
+            "name": "compact (W0)", "route": "cuda",
+            "source": "brickmap_tpu_torch/csrc/wave.cu",
+            "replaces": "brickmap_tpu/render/pathtrace.py:59",
+            "launches": w5_launches[3], "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": nz_ms}
+        records["W4"] = {
+            "name": "rescue (W4)", "route": "cuda",
+            "source": "brickmap_tpu_torch/csrc/wave.cu",
+            "replaces": "brickmap_tpu/render/pathtrace.py:385",
+            "launches": w5_launches[4], "max_abs_err": w4_err[0],
+            "ms": w4_ms, "plain_ms": w4_plain_ms, "bound_ms": w4_bound,
+            "bound_by": w4_by, "library_ms": None}
 
-        # The same wave through the kernels and with the plain W1-W3
-        # swapped in (B2 the kernel in both), on the same uniforms.
-        u = draw_wave_uniforms(w * h, nb, gen, dev)
-        got = pathtrace.render_wave(world, arrays, cam0.brick_position, cfg,
-                                    w, h, uniforms=u)
-        kernels = kwave.primary, kwave.gather_clip, kwave.shade
-        kwave.primary, kwave.gather_clip, kwave.shade = \
-            owave.primary_plain, owave.gather_clip_plain, owave.shade_plain
-        try:
-            want = pathtrace.render_wave(world, arrays, cam0.brick_position,
-                                         cfg, w, h, uniforms=u)
-        finally:
-            kwave.primary, kwave.gather_clip, kwave.shade = kernels
-        torch.cuda.synchronize()
-        err = float((got[0] - want[0]).abs().max())
-        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
-        same = {k: bool(torch.equal(got[2][k], want[2][k]))
-                for k in ("mask", "pos", "traced_rays", "exhausted_rays")}
-        if not (torch.equal(got[1], want[1]) and all(same.values())
-                and int(got[2]["exhausted_rays"]) == 0):
-            fail(f"the wave through W1-W3 differs from the plain one: "
-                 f"count {torch.equal(got[1], want[1])}, {same}, exhausted "
-                 f"{int(got[2]['exhausted_rays'])}")
-        print(f"  view 0's wave through W1-W3 against the plain W1-W3 "
-              f"swapped in: rgb max |diff| {err} (equal: "
-              f"{torch.equal(got[0], want[0])}), count, mask, pos, "
-              f"{int(got[2]['traced_rays'])} traced and 0 exhausted equal",
-              flush=True)
-        del got, want, u
+        # Whole waves through the kernels against the same waves with the
+        # plain W0-W4 swapped in (B2 the kernel in both), on the same
+        # uniforms: view 0, view 7 (every primary misses) and view 0 with
+        # a starved trace budget (W4 rescues rays in every trace).
+        import dataclasses
+
+        starved = cfg.replace(render=dataclasses.replace(
+            cfg.render, max_top_steps=STARVED_STEPS, max_brick_steps=0,
+            max_byte_steps=0))
+        names = ("compact", "primary", "gather_clip", "shade", "rescue")
+        plains = (owave.compact_plain, owave.primary_plain,
+                  owave.gather_clip_plain, owave.shade_plain,
+                  owave.rescue_plain)
+        for vi, cfg_x, tag in ((0, cfg, "view 0"), (7, cfg, "view 7"),
+                               (0, starved, "view 0, starved")):
+            cam_x = cams[vi]
+            arr_x = camera_arrays_for(cam_x, sun, w, h, dev)
+            u = draw_wave_uniforms(w * h, nb, gen, dev)
+            r0 = kwave.rescue.launches
+            got = pathtrace.render_wave(world, arr_x, cam_x.brick_position,
+                                        cfg_x, w, h, uniforms=u)
+            kernels = [getattr(kwave, k) for k in names]
+            for k, f in zip(names, plains):
+                setattr(kwave, k, f)
+            try:
+                want = pathtrace.render_wave(world, arr_x,
+                                             cam_x.brick_position, cfg_x, w,
+                                             h, uniforms=u)
+            finally:
+                for k, f in zip(names, kernels):
+                    setattr(kwave, k, f)
+            torch.cuda.synchronize()
+            err = float((got[0] - want[0]).abs().max())
+            torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+            same = {k: bool(torch.equal(got[2][k], want[2][k]))
+                    for k in ("mask", "pos", "traced_rays", "exhausted_rays")}
+            if not (torch.equal(got[1], want[1]) and all(same.values())
+                    and int(got[2]["exhausted_rays"]) == 0
+                    and kwave.rescue.launches - r0 == traces):
+                fail(f"{tag}: the wave through W0-W4 differs from the plain "
+                     f"one: count {torch.equal(got[1], want[1])}, {same}, "
+                     f"exhausted {int(got[2]['exhausted_rays'])}")
+            print(f"  {tag}: the wave through W0-W4 against the plain W0-W4 "
+                  f"swapped in: rgb max |diff| {err} (equal: "
+                  f"{torch.equal(got[0], want[0])}), count, mask, pos, "
+                  f"{int(got[2]['traced_rays'])} traced and 0 exhausted "
+                  f"equal", flush=True)
+            del got, want, u
 
     # ------------------------------------------------------------------
     from brickmap_tpu_torch.diff import sparse as dsparse
@@ -1744,7 +1910,8 @@ def main() -> int:
         records["B2"]["max_abs_err"] = b2_err[0]
         del cold, csc, got, want, o8, d8, u
 
-        plain_calls = {"B2": 0, "W1": 0, "W2": 0, "W3": 0}
+        plain_calls = {"B2": 0, "W0": 0, "W1": 0, "W2": 0, "W3": 0,
+                       "W4": 0}
         saved8 = [counting(ktrav, "trace_rays", "B2"),
                   counting(ktrav, "trace_clipped_rays", "B2"),
                   *count_wave_plain(plain_calls)]
@@ -1813,7 +1980,7 @@ def main() -> int:
               f"{sum(r['pull_ms'] for r in rows8):.3f} ms, plan "
               f"{sum(r['plan_ms'] for r in rows8):.3f} ms, install "
               f"{sum(r['install_ms'] for r in rows8):.3f} ms, "
-              f"{sum(r['grew'] for r in rows8)} growths; W1, W2, W3 "
+              f"{sum(r['grew'] for r in rows8)} growths; W1, W2, W3, W0, W4 "
               f"launches per wave {w8} on {out8['device']}", flush=True)
         sc8 = mgr.device_scene()
         print(f"  device bytes: streaming scene {sc8.nbytes} (pool "
@@ -1822,7 +1989,7 @@ def main() -> int:
         if b2_launches8 != sum(launches8) or min(launches8) < 1:
             fail(f"a streaming wave did not launch B2: {launches8}")
         if min(min(x) for x in w8) < 1:
-            fail(f"a streaming wave did not launch W1-W3: {w8}")
+            fail(f"a streaming wave did not launch W0-W4: {w8}")
         if any(plain_calls.values()):
             fail(f"plain versions ran in the streaming waves: "
                  f"{plain_calls}")
@@ -1975,7 +2142,8 @@ def main() -> int:
             events9.append("camera_input")
             return orig_apply(*a, **k)
 
-        plain_calls = {"B2": 0, "W1": 0, "W2": 0, "W3": 0}
+        plain_calls = {"B2": 0, "W0": 0, "W1": 0, "W2": 0, "W3": 0,
+                       "W4": 0}
         saved9 = [counting(ktrav, "trace_rays", "B2"),
                   counting(ktrav, "trace_clipped_rays", "B2"),
                   *count_wave_plain(plain_calls)]
@@ -2007,7 +2175,7 @@ def main() -> int:
                       if f.startswith("view_") and f.endswith(".png"))
         print(f"  B2 launches {b2_launches9}, per wave "
               f"{[n for n, _, _ in waves9]}, exhausted "
-              f"{[e for _, e, _ in waves9]}; W1, W2, W3 per wave "
+              f"{[e for _, e, _ in waves9]}; W1, W2, W3, W0, W4 per wave "
               f"{[x for _, _, x in waves9]}; PNGs {pngs}; film events "
               f"{events9}; served: frame.png {len(got9.get('png', b''))} "
               f"bytes, stats {got9.get('stats')}, POST /camera -> "
@@ -2020,7 +2188,7 @@ def main() -> int:
                 or b2_launches9 != sum(n for n, _, _ in waves9):
             fail(f"a viewer wave did not launch B2: {waves9}")
         if min(min(x) for _, _, x in waves9) < 1:
-            fail(f"a viewer wave did not launch W1-W3: {waves9}")
+            fail(f"a viewer wave did not launch W0-W4: {waves9}")
         if any(plain_calls.values()):
             fail(f"plain versions ran in the viewer: {plain_calls}")
         if any(e for _, e, _ in waves9):
@@ -2117,14 +2285,17 @@ def main() -> int:
             f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms ({e.count}x)"
             for e in ops), flush=True)
         del prof9, evs
-        # The wave's launch and copy budget: at most 150 kernels, at most
-        # 12 synchronising copies, no pageable host-to-device copy.
+        # The wave's launch and copy budget: at most 150 kernels, no
+        # device-to-host copy or stream synchronise (the wave makes no host
+        # round trip; the window's own torch.cuda.synchronize calls are
+        # device synchronises), no pageable host-to-device copy.
         if not 0 < kinds["kernel"] <= 150:
             fail(f"the profiled wave shows {kinds['kernel']} kernel "
                  f"launches, not 1 to 150")
-        if kinds["DtoH"] > 12:
+        if kinds["DtoH"] or api.get("cudaStreamSynchronize", 0):
             fail(f"the profiled wave makes {kinds['DtoH']} device-to-host "
-                 f"copies, more than 12")
+                 f"copies and {api.get('cudaStreamSynchronize', 0)} stream "
+                 f"synchronises, not 0")
         if kinds["HtoD pageable"]:
             fail(f"the profiled wave makes {kinds['HtoD pageable']} "
                  f"pageable host-to-device copies")
@@ -2150,7 +2321,8 @@ def main() -> int:
             arrays = camera_arrays_for(cam0, sun, w, h, dev)
             u = draw_wave_uniforms(n, cfg.render.max_bounces, gen, dev)
             plain_calls = {"B2": 0, "B3": 0, "R1": 0, "B4f": 0, "R2": 0,
-                           "B4b": 0, "W1": 0, "W2": 0, "W3": 0}
+                           "B4b": 0, "W0": 0, "W1": 0, "W2": 0, "W3": 0,
+                           "W4": 0}
             saved10 = [counting(ktrav, "trace_rays", "B2"),
                        counting(ktrav, "trace_clipped_rays", "B2"),
                        counting(krec, "record_segments_plain", "B3"),
@@ -2188,7 +2360,7 @@ def main() -> int:
             print(f"  render_wave_sharded, view 0 at {w}x{h}: "
                   f"{sharded_s * 1e3:.3f} ms (wave_for_indices "
                   f"{indices_s * 1e3:.3f} ms), B2 launches {b2_sharded}, "
-                  f"W1, W2, W3 {w_sharded}, "
+                  f"W1, W2, W3, W0, W4 {w_sharded}, "
                   f"{int(req_s['traced_rays'])} rays traced, equal to "
                   f"wave_for_indices bit for bit: {same}")
             if b2_sharded < 5 or min(w_sharded) < 1 or not same:
@@ -2224,7 +2396,7 @@ def main() -> int:
             print(f"  render_frame, view 0 in {len(chunks)} chunks of "
                   f"{chunk}: {frame_s * 1e3:.3f} ms (render_wave "
                   f"{wave_s * 1e3:.3f} ms), B2 launches {b2_frame}, "
-                  f"W1, W2, W3 {w_frame}, {traced_f} rays traced "
+                  f"W1, W2, W3, W0, W4 {w_frame}, {traced_f} rays traced "
                   f"(the wrapped chunk's repeats included), exhausted "
                   f"{exh_f}, {len(reqs_f)} requests (render_wave: "
                   f"{len(reqs_w)}); rgb and count equal to render_wave's "
@@ -2338,8 +2510,8 @@ def main() -> int:
                 fail(f"{r['name']}: {k} is not finite")
     print(smi_line())
     print(json.dumps({"kernels": [records[k] for k in
-                                  ("B1", "B2", "B3", "B4f", "B4b", "W1",
-                                   "W2", "W3", "R1", "R2")]}))
+                                  ("B1", "B2", "B3", "B4f", "B4b", "W0",
+                                   "W1", "W2", "W3", "W4", "R1", "R2")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@ at the main path's shapes, with the lines each warp-wide gather touches.
 
     python3 notes/probe_torch_b2.py [--variants T1R0,T1R1,...]
         [--blocks-per-sm 1,2,...,9] [--sweep T0R0,T1R1] [--sass-dir DIR]
-        [--reps 20] [--no-phase5] [--phase5 T0R0]       # one CUDA card
+        [--reps 20] [--no-phase5] [--phase5 T0R0]
+        [--parent OTHER/brickmap_tpu_torch/csrc/traverse.cu]  # one CUDA card
 
 Builds, with the port's nvcc flags, each printing its ptxas lines:
 
@@ -13,7 +14,11 @@ Builds, with the port's nvcc flags, each printing its ptxas lines:
   the redesign found it (index words from ``index_volume[cz][cy][cx]``, the
   brick's row word re-read from global memory at every step of the
   descend);
-* ``csrc/traverse.cu`` as it stands;
+* ``csrc/traverse.cu`` as it stands (its launcher reads the ray count on
+  the device; here the count is every row);
+* with ``--parent``, another tree's ``traverse.cu`` (the parent commit's,
+  unpacked with ``git archive``), built the same way and timed as
+  ``parent`` beside csrc's, for a change of B2's source;
 * ``notes/probe_torch_b2_variants.cu`` once for each ``--variants`` spec
   ``T<top>R<row>`` (top 0: ``index_volume``, 1: ``block_words`` recomputed
   each step, 2: ``block_words`` advanced; row 0: re-read each step, 1: one
@@ -150,6 +155,9 @@ def main() -> int:
     ap.add_argument("--no-phase5", action="store_true")
     ap.add_argument("--phase5", default="",
                     help="comma list: variants also timed in phase 5's waves")
+    ap.add_argument("--parent", default=None,
+                    help="another tree's traverse.cu (a launcher without "
+                         "the count), timed as 'parent'")
     args = ap.parse_args()
 
     import torch
@@ -181,6 +189,8 @@ def main() -> int:
     sweep = [s for s in args.sweep.split(",") if s] if args.blocks_per_sm \
         else []
     jobs = [("base", os.path.join(HERE, "probe_torch_b2_pr5.cu"), ())]
+    if args.parent:
+        jobs.append(("parent", os.path.abspath(args.parent), ()))
     for spec in dict.fromkeys(specs + sweep):
         jobs.append((spec, os.path.join(HERE, "probe_torch_b2_variants.cu"),
                      variant_spec(spec)))
@@ -190,9 +200,14 @@ def main() -> int:
                  ("PROBE_TOP=0", "PROBE_ROW=0", "PROBE_CLOCK=1")))
     libs = nvcc_all(build, jobs)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ktrav._bind(libs["base"][0])
+    old_sig = ("base", "parent")     # launchers without the count argument
+    for tag in old_sig:
+        if tag in libs:
+            libs[tag][0].traverse_launch.argtypes = (
+                [i] + [p] * 8 + [i] * 12 + [f, i] + [p] * 8 + [p])
+            libs[tag][0].traverse_launch.restype = i
     for tag, (lib, _) in libs.items():
-        if tag != "base":
+        if tag not in old_sig:
             lib.variant_launch.argtypes = ([i] + [p] * 9 + [i] * 12 + [f, i]
                                            + [p] * 8 + [p, i, p])
             lib.variant_launch.restype = i
@@ -226,19 +241,24 @@ def main() -> int:
             tilings[key] = block_words(sc.index_volume)
         if tag == "csrc":
             fn, words = lib_csrc.traverse_launch, sc.index_volume
-        elif tag == "base":
-            fn, words = libs["base"][0].traverse_launch, sc.index_volume
+        elif tag in old_sig:
+            fn, words = libs[tag][0].traverse_launch, sc.index_volume
         else:
             fn, words = libs[tag][0].variant_launch, tilings[key]
+        n_dev = torch.full((1,), inputs[0].shape[0], dtype=torch.int32,
+                           device=dev)
         a = ktrav.launch_args(inputs, words, sc, cam, grid, steps, out,
-                              stream)
-        if tag not in ("csrc", "base"):
+                              stream, n_dev)
+        if tag != "csrc":     # the launchers without the count
+            a = a[:1] + a[2:]
+        if tag not in ("csrc", *old_sig):
             a = a[:6] + (sc.index_volume.data_ptr(),) + a[6:-1] + (
                 None if counters is None else counters.data_ptr(), bps,
                 stream)
 
         def run():
             build.check(fn(*a), f"B2 {tag}")
+        run.keep = n_dev
         return run
 
     # The shapes.
@@ -257,11 +277,12 @@ def main() -> int:
     calls = []
     orig_gather = kwave.gather_clip
 
-    def capture(rays_o, rays_d, lanes, g, off=None, pos=None):
-        if off is None:     # a trace's rays (rescue passes not included)
-            calls.append((rays_o[lanes].clone(), rays_d[lanes].clone()))
-        return orig_gather(rays_o, rays_d, lanes, g, off, pos)
+    def capture(rays_o, rays_d, lanes, count, g, pos=None):
+        rows = lanes[:int(count)].long()    # a trace's rays
+        calls.append((rays_o[rows].clone(), rays_d[rows].clone()))
+        return orig_gather(rays_o, rays_d, lanes, count, g, pos)
 
+    capture.events, capture.launches = None, 0    # the wrapper's hooks
     kwave.gather_clip = capture
     gen.manual_seed(0)
     pathtrace.render_wave(world, arrays, cam0.brick_position, cfg, w, h,
@@ -283,7 +304,8 @@ def main() -> int:
               "streaming primaries": (o8, d8, csc)}
     del calls, u
 
-    builds = ["base", "csrc"] + specs
+    builds = ["base"] + (["parent"] if args.parent else []) + ["csrc"] \
+        + specs
     rows, sweeps = [], []
     for tag, (o, d, sc) in shapes.items():
         n = o.shape[0]
@@ -399,15 +421,16 @@ def main() -> int:
         # each B2 launch of the wave made by build ``tag`` between CUDA
         # events: B2 as the wave leaves the L2 for it.
         def wave_trace(tag, events):
-            def tr(inputs, sc, cb, g, steps):
+            def tr(inputs, count, sc, cb, g, steps):
                 out = ktrav._outputs(inputs[0].shape[0], inputs[0].device)
-                n = inputs[0].shape[0]
+                n = int(count)      # the probe reads it; the wave does not
+                inputs = tuple(a[:n] for a in inputs)
                 if n:
                     e0, e1 = (torch.cuda.Event(enable_timing=True)
                               for _ in range(2))
                     e0.record()
-                    runner(tag, inputs, out, sc, tuple(int(c) for c in cb),
-                           steps=steps)()
+                    runner(tag, inputs, {k: v[:n] for k, v in out.items()},
+                           sc, tuple(int(c) for c in cb), steps=steps)()
                     e1.record()
                     events.append((e0, e1))
                 out["iters"] = out["ray_iters"].amax() if n else \
@@ -433,7 +456,8 @@ def main() -> int:
             return sum(a.elapsed_time(b) for a, b in events), len(events), \
                 images
 
-        order = ["base", "csrc"] + [t for t in args.phase5.split(",") if t]
+        order = ["base"] + (["parent"] if args.parent else []) + ["csrc"] \
+            + [t for t in args.phase5.split(",") if t]
         sums = {bt: [] for bt in order}
         ref_images = None
         for bt in order + order[::-1]:

@@ -399,11 +399,12 @@ def main() -> int:
     calls = []
     orig_gather = kwave.gather_clip
 
-    def capture(rays_o, rays_d, lanes, g, off=None, pos=None):
-        if off is None:     # a trace's rays (rescue passes not included)
-            calls.append((rays_o[lanes].clone(), rays_d[lanes].clone()))
-        return orig_gather(rays_o, rays_d, lanes, g, off, pos)
+    def capture(rays_o, rays_d, lanes, count, g, pos=None):
+        rows = lanes[:int(count)].long()    # a trace's rays
+        calls.append((rays_o[rows].clone(), rays_d[rows].clone()))
+        return orig_gather(rays_o, rays_d, lanes, count, g, pos)
 
+    capture.events, capture.launches = None, 0    # the wrapper's hooks
     kwave.gather_clip = capture
     gen.manual_seed(0)
     pathtrace.render_wave(world, arrays, cam0.brick_position, cfg, w, h,
@@ -465,8 +466,11 @@ def main() -> int:
             if not torch.equal(got[k], ref[k]):
                 raise SystemExit(f"B2 csrc {tag}: {k} differs")
         print("  csrc: equal", flush=True)
+        n_dev = torch.full((1,), o.shape[0], dtype=torch.int32, device=dev)
         launch, _ = b2_launch(build.load("traverse", ktrav._bind)
-                              .traverse_launch, o, d, cam)
+                              .traverse_launch, o, d, cam,
+                              (n_dev.data_ptr(),))
+        launch.count = n_dev
         turns["csrc"] = launch
         for spec, lib in variants.items():
             launch, out = b2_launch(lib.variant_traverse_launch, o, d, cam)

@@ -48,8 +48,9 @@ def host_lib(tmp_path_factory):
 
 def host_trace(lib, o, d, sc, cam, grid, steps):
     inputs, out = ktrav.launch_inputs(o, d, grid)
+    count = torch.tensor([o.shape[0]], dtype=torch.int32)
     status = lib.traverse_launch(*ktrav.launch_args(
-        inputs, sc.index_volume, sc, cam, grid, steps, out, None))
+        inputs, sc.index_volume, sc, cam, grid, steps, out, None, count))
     assert status == 0
     return out
 

@@ -11,7 +11,7 @@ python_float``), so it must match the CPU plain version:
 
 * W2 (the gather fused with ``aabb_clip``) bit for bit, NaN in the same
   places, on rays on the slab planes, with zero direction components, from
-  inside and outside the box, with and without a rescue offset;
+  inside and outside the box, with and without the position map;
 * every mask, request, position and counter of W1 and W3 exactly;
 * the floats of W1 and W3 within a stated tolerance, because the kernel
   calls glibc's ``sinf``/``cosf``/``expf``/``acosf``/``powf``/``sqrtf`` here
@@ -130,12 +130,12 @@ def host_primary(lib, idx, u, arr, st):
     del keep
 
 
-def host_gather(lib, rays_o, rays_d, lanes, grid, off=None, pos=None):
+def host_gather(lib, rays_o, rays_d, lanes, count, grid, pos=None):
     m = lanes.shape[0]
     out = (torch.empty(m, 3), torch.empty(m, 3), torch.empty(m, 3),
            torch.empty(m), torch.empty(m, dtype=torch.bool))
     assert lib.wave_gather_clip_launch(*kwave.gather_clip_args(
-        rays_o, rays_d, lanes, grid, off, pos, out, None)) == 0
+        rays_o, rays_d, lanes, count, grid, pos, out, None)) == 0
     return out
 
 
@@ -153,11 +153,13 @@ def host_shade(lib, bounce, st, res, cone, hemi, sun, final=False, dst=None):
 
 
 def trace(st, sc, steps):
-    """The plain W2 and B2 over the state's live rays (the map written)."""
-    lanes = torch.nonzero(st["live"]).squeeze(1)
+    """The plain W0, W2 and B2 over the state's live rays (the map
+    written)."""
+    lanes, count = owave.compact_plain(st["live"])
     inputs = owave.gather_clip_plain(st["rays_o"], st["rays_d"], lanes,
-                                     CFG.grid, pos=st["pos"])
-    res = trace_clipped_rays(*inputs, sc.index_volume, sc.pool_words,
+                                     count, CFG.grid, pos=st["pos"])
+    res = trace_clipped_rays(*(a[:int(count)] for a in inputs),
+                             sc.index_volume, sc.pool_words,
                              sc.pool_base, (2, 2, 12), CFG.grid,
                              max_iters=steps)
     return {k: res[k] for k in owave.RESULT_KEYS}
@@ -212,22 +214,21 @@ def slab_rays(grid):
             torch.from_numpy(d.astype(np.float32)))
 
 
-@pytest.mark.parametrize("with_off", [False, True])
-def test_w2_gather_clip_equals_aabb_clip(host_lib, with_off):
+@pytest.mark.parametrize("with_pos", [False, True])
+def test_w2_gather_clip_equals_aabb_clip(host_lib, with_pos):
     rays_o, rays_d = slab_rays(CFG.grid)
     rng = np.random.default_rng(2)
     lanes = torch.from_numpy(np.sort(rng.choice(
-        rays_o.shape[0], 2500, replace=False)))
+        rays_o.shape[0], 2500, replace=False))).int()
     lanes[:36] = torch.arange(36)            # every slab-plane ray
     lanes = lanes.contiguous()
-    off = torch.from_numpy(rng.uniform(0, 40, lanes.shape[0]).astype(
-        np.float32)) if with_off else None
+    count = torch.tensor([lanes.shape[0]], dtype=torch.int32)
     pos_w = torch.full((rays_o.shape[0],), -1, dtype=torch.int32)
     pos_g = pos_w.clone()
-    want = owave.gather_clip_plain(rays_o, rays_d, lanes, CFG.grid, off,
-                                   None if with_off else pos_w)
-    got = host_gather(host_lib, rays_o, rays_d, lanes, CFG.grid, off,
-                      None if with_off else pos_g)
+    want = owave.gather_clip_plain(rays_o, rays_d, lanes, count, CFG.grid,
+                                   pos_w if with_pos else None)
+    got = host_gather(host_lib, rays_o, rays_d, lanes, count, CFG.grid,
+                      pos_g if with_pos else None)
     for name, a, b in zip(("clipped", "dirs", "entry_normal", "tminn", "ok"),
                           got, want):
         close(a, b, name, exact=True)
@@ -343,19 +344,25 @@ def test_cuda_kernels_equal_plain(scenes, cuda_device):
     check_state(st, want, exact=True)
 
     rays_o, rays_d = (t.to(dev) for t in slab_rays(CFG.grid))
-    lanes = torch.arange(0, rays_o.shape[0], 3, device=dev)
-    off = torch.rand(lanes.shape[0], device=dev) * 40
-    for o in (None, off):
-        got = kwave.gather_clip(rays_o, rays_d, lanes, CFG.grid, off=o)
-        ref = owave.gather_clip_plain(rays_o, rays_d, lanes, CFG.grid, off=o)
-        for a, b in zip(got, ref):
-            close(a, b, "gather_clip", exact=True)
+    lanes = torch.arange(0, rays_o.shape[0], 3, device=dev,
+                         dtype=torch.int32)
+    m = lanes.shape[0] - 7
+    count = torch.tensor([m], dtype=torch.int32, device=dev)
+    got = kwave.gather_clip(rays_o, rays_d, lanes, count, CFG.grid)
+    ref = owave.gather_clip_plain(rays_o, rays_d, lanes, count, CFG.grid)
+    for a, b in zip(got, ref):
+        close(a[:m], b[:m], "gather_clip", exact=True)
 
     for bounce, steps in ((0, 12), (1, 4096), (2, 4096)):
-        lanes = torch.nonzero(st["live"]).squeeze(1)
-        inputs = kwave.gather_clip(st["rays_o"], st["rays_d"], lanes,
+        lanes, count = kwave.compact(st["live"])
+        want_lanes, want_count = owave.compact_plain(st["live"])
+        m = int(want_count)
+        assert torch.equal(count, want_count)
+        assert torch.equal(lanes[:m], want_lanes[:m])
+        inputs = kwave.gather_clip(st["rays_o"], st["rays_d"], lanes, count,
                                    CFG.grid, pos=st["pos"])
-        res = ktrav.trace_clipped(inputs, sc, (2, 2, 12), CFG.grid, steps)
+        res = ktrav.trace_clipped(inputs, count, sc, (2, 2, 12), CFG.grid,
+                                  steps)
         ref = clone(st)
         final = bounce == 2
         cone = None if final else u["cone"][bounce]
@@ -374,8 +381,8 @@ def test_cuda_kernels_equal_plain(scenes, cuda_device):
 @pytest.mark.cuda
 def test_cuda_starved_wave_equals_plain(scenes, cuda_device, monkeypatch):
     """A wave on the card whose traces exhaust a starved budget, so that
-    the rescue passes gather through W2 with their resume offsets: through
-    the kernels it equals the same wave with the plain W1-W3 swapped in."""
+    W4 rescues rays: through the kernels it equals the same wave with the
+    plain W0-W4 swapped in."""
     import dataclasses
 
     from brickmap_tpu_torch.render import pathtrace
@@ -386,12 +393,14 @@ def test_cuda_starved_wave_equals_plain(scenes, cuda_device, monkeypatch):
         CFG.render, max_top_steps=3, max_brick_steps=1, max_byte_steps=0))
     u = {k: v.to(dev) for k, v in uniforms(12).items()}
     arr = {k: v.to(dev) for k, v in arrays(0.3).items()}
-    launches = kwave.gather_clip.launches
+    launches = kwave.rescue.launches
     got = pathtrace.render_wave(sc, arr, (2, 2, 12), cfg, W, H, uniforms=u)
-    assert kwave.gather_clip.launches - launches > 3     # rescue passes ran
-    for name, plain in (("primary", owave.primary_plain),
+    assert kwave.rescue.launches - launches == 3         # one a trace
+    for name, plain in (("compact", owave.compact_plain),
+                        ("primary", owave.primary_plain),
                         ("gather_clip", owave.gather_clip_plain),
-                        ("shade", owave.shade_plain)):
+                        ("shade", owave.shade_plain),
+                        ("rescue", owave.rescue_plain)):
         monkeypatch.setattr(kwave, name, plain)
     want = pathtrace.render_wave(sc, arr, (2, 2, 12), cfg, W, H, uniforms=u)
     close(got[0], want[0], "rgb", exact=True)
