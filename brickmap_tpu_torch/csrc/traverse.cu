@@ -95,7 +95,7 @@ traverse_kernel(bm::TraverseParams P, int n, const int* __restrict__ count,
 
   const float tmin = tminn[i];
   hit_out[i] = hit;
-  t_out[i] = hit ? t + tmin : 0.0f;
+  t_out[i] = bm::hit_distance(hit, t, tmin);
   normal_out[3 * i + 0] = hnx;
   normal_out[3 * i + 1] = hny;
   normal_out[3 * i + 2] = hnz;
@@ -104,16 +104,8 @@ traverse_kernel(bm::TraverseParams P, int n, const int* __restrict__ count,
   request_pos[3 * i + 1] = request ? py : 0;
   request_pos[3 * i + 2] = request ? pz : 0;
   exhausted_out[i] = active;
-  // Resume distance of an exhausted ray: entry t of the top cell it is in,
-  // in world units along the original ray.
-  float resume = 0.0f;
-  if (active) {
-    const float rc = axis0 >= 0 ? bm::sel3(axis0, tx, ty, tz) -
-                                      bm::sel3(axis0, ax.td, ay.td, az.td)
-                                : 0.0f;
-    resume = fmaxf(rc * bszf + tmin, 0.0f);
-  }
-  resume_out[i] = resume;
+  resume_out[i] = bm::resume_distance(active, axis0, tx, ty, tz, ax, ay, az,
+                                      bszf, tmin);
   iters_out[i] = P.max_iters - budget;
 }
 

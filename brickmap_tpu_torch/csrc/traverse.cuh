@@ -1,6 +1,7 @@
 // What kernel B2 (traverse.cu) and the rescue kernel W4 (wave.cu) share:
-// the scene's parameters and index-word flags as the walk reads them, and
-// the walk itself, traverse_walk.inc, which both include in their kernels.
+// the scene's parameters and index-word flags as the walk reads them, the
+// walk itself, traverse_walk.inc, which both include in their kernels, and
+// the outputs both make of the walk's state.
 #pragma once
 
 #include "dda.cuh"
@@ -20,5 +21,27 @@ struct TraverseParams {
   float eps;
   int max_iters;            // DDA steps per ray, shared by the three levels
 };
+
+// The hit's distance along the ray from the box entry at tmin (0 for a
+// miss or an exhausted ray), from the walk's t past the clipped origin.
+__device__ __forceinline__ float hit_distance(bool hit, float t, float tmin) {
+  return hit ? t + tmin : 0.0f;
+}
+
+// An exhausted (still active) ray's resume distance: the entry t of the
+// top cell it stopped in, in world units along the ray from the box entry
+// at tmin; 0 for a ray that ended.
+__device__ __forceinline__ float resume_distance(bool active, int axis0,
+                                                 float tx, float ty, float tz,
+                                                 const Axis& ax,
+                                                 const Axis& ay,
+                                                 const Axis& az, float bszf,
+                                                 float tmin) {
+  if (!active) return 0.0f;
+  const float rc = axis0 >= 0 ? sel3(axis0, tx, ty, tz) -
+                                    sel3(axis0, ax.td, ay.td, az.td)
+                              : 0.0f;
+  return fmaxf(rc * bszf + tmin, 0.0f);
+}
 
 }  // namespace bm

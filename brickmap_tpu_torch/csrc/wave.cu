@@ -587,17 +587,11 @@ rescue_kernel(const int* __restrict__ count, const int* __restrict__ rows,
 #undef BM_ORIGIN
 #undef BM_OK
 #undef BM_ENTRY_NORMAL
-    // B2's outputs (traverse.cu), then the pass's shift by `off`.
-    const float tmin = c.tmin;
-    float b2_resume = 0.0f;
-    if (active) {
-      const float rc = axis0 >= 0 ? bm::sel3(axis0, tx, ty, tz) -
-                                        bm::sel3(axis0, ax.td, ay.td, az.td)
-                                  : 0.0f;
-      b2_resume = fmaxf(rc * bszf + tmin, 0.0f);
-    }
+    // B2's outputs (traverse.cuh), then the pass's shift by `off`.
+    const float b2_resume = bm::resume_distance(active, axis0, tx, ty, tz,
+                                                ax, ay, az, bszf, c.tmin);
     r_hit = hit;
-    r_t = hit ? (t + tmin) + off : 0.0f;
+    r_t = hit ? bm::hit_distance(hit, t, c.tmin) + off : 0.0f;
     r_n[0] = hnx;
     r_n[1] = hny;
     r_n[2] = hnz;

@@ -16,7 +16,8 @@ kernel's launches through either; ``trace.events`` is the event hook of
 :func:`launch_inputs` and :func:`launch_args` build a launcher's inputs and
 ctypes arguments (``notes/probe_torch_b2.py`` and the host rehearsal of
 ``csrc/traverse.cu`` share them); :func:`walk_args` the walk's own, which
-the wave's rescue kernel W4 takes too.
+the wave's rescue kernel W4 takes too, as it does the checks
+:func:`check_scene` and :func:`check_count`.
 
 The result is the ``trace_rays_paged`` contract (traverse3.py:938-947):
 ``hit``, ``t``, ``normal``, ``request``, ``request_pos``, ``exhausted``,
@@ -35,7 +36,7 @@ from ..ops.traverse import aabb_clip, trace_clipped_rays, trace_rays
 from . import build, hooked
 
 __all__ = ["trace", "trace_clipped", "launch_inputs", "launch_args",
-           "walk_args"]
+           "walk_args", "check_count", "check_scene"]
 
 _F32, _I32 = torch.float32, torch.int32
 _KEYS = ("hit", "t", "normal", "request", "request_pos", "exhausted",
@@ -124,7 +125,7 @@ def trace(origins: torch.Tensor, dirs: torch.Tensor, scene, cam_brick,
         res = trace_rays(origins, dirs, scene.index_volume, scene.pool_words,
                          scene.pool_base, cam, grid, max_iters=max_steps)
         return {k: res[k] for k in _KEYS}
-    _check_scene(scene, grid, dev)
+    check_scene(scene, grid, dev)
     inputs, out = launch_inputs(origins, dirs, grid)
     n = origins.shape[0]
     _launch(inputs, scene, cam, grid, max_steps, out,
@@ -155,7 +156,7 @@ def trace_clipped(inputs, count, scene, cam_brick, grid: GridConfig,
         for k in _KEYS[:-1]:
             out[k][:m] = res[k]
         return out
-    _check_scene(scene, grid, dev)
+    check_scene(scene, grid, dev)
     if cap > build.MAX_RAYS:
         raise ValueError(f"at most {build.MAX_RAYS} rays a launch")
     dtypes = (_F32,) * 4 + (torch.bool,)
@@ -179,7 +180,9 @@ def check_count(count, dev, name: str) -> None:
                          f"{dev}")
 
 
-def _check_scene(scene, grid: GridConfig, dev) -> None:
+def check_scene(scene, grid: GridConfig, dev) -> None:
+    """A scene the walk can read on ``dev``: contiguous int32 arrays on the
+    card, the index volume the grid's shape (B2's and W4's wrappers)."""
     if dev.type != "cuda":
         raise ValueError(f"trace: unsupported device {dev}")
     for name, a in (("index_volume", scene.index_volume),

@@ -426,7 +426,7 @@ def rescue(res: dict, rows, count, lanes, rays_o, rays_d, scene, cam_brick,
                      grid, budget, passes)
         return
     _device(dev, "rescue")
-    ktrav._check_scene(scene, grid, dev)
+    ktrav.check_scene(scene, grid, dev)
     cap, n_rays = rows.shape[0], rays_o.shape[0]
     for name, a, dtype, shape in (
             ("rows", rows, _I32, (cap,)), ("lanes", lanes, _I32, (cap,)),

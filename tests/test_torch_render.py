@@ -182,6 +182,59 @@ def test_rescue_zeroes_exhausted(world, monkeypatch):
     assert int(req0["exhausted_rays"]) > 0
 
 
+def jax_wave_without_rescue(world, key, jcfg):
+    """The JAX wave's bounce chain with no rescue (``_bounce_step`` and
+    ``_final_shadow``, as ``wave_for_indices`` runs them) over the pixels
+    in ``render_wave``'s tile order: its requests (in that order)."""
+    jsc, _, jcam, jarr, _ = world
+    cam = jnp.asarray(jcam.brick_position, jnp.int32)
+    k_pix, k_loop = jax.random.split(key)
+    st = jpt._primary_state(k_pix, jarr, jcfg, W, H, pixel_order=jnp.asarray(
+        jpt._tile_permutation(W, H)[0]))
+    for bounce in range(jcfg.render.max_bounces + 1):
+        k_loop, k_b = jax.random.split(k_loop)
+        st = jpt._bounce_step(jnp.int32(bounce), k_b, st, jsc, cam,
+                              jarr["sun_direction"], jcfg)
+    return jpt._final_shadow(st, jsc, cam, jcfg)[2]
+
+
+@pytest.mark.parametrize("seed,starve", [
+    (35, dict(max_bounces=1, max_top_steps=3, max_brick_steps=1,
+              max_byte_steps=0)),
+    (37, dict(max_bounces=2, max_top_steps=2, max_brick_steps=0,
+              max_byte_steps=0)),
+])
+def test_rescued_wave_matches_jax(world, monkeypatch, seed, starve):
+    """Rays exhaust a starved budget in both packages; the JAX wave's in-program rescue (``_cond_rescue``, no host
+    retry) and the port's (W4, its plain version here) give the same
+    wave, every ray resolved."""
+    key = jax.random.PRNGKey(seed)
+    jcfg, tcfg = starved(JCFG, **starve), starved(TCFG, **starve)
+    jsc, _, jcam, jarr, _ = world
+    rgb_j, cnt_j, req_j = jpt.render_wave(
+        key, jsc, jarr, jnp.asarray(jcam.brick_position, jnp.int32), jcfg,
+        W, H, retry_on_overflow=False)
+    rgb_t, cnt_t, req_t = port_wave(world, key, tcfg)
+    np.testing.assert_allclose(rgb_t.numpy(), np.asarray(rgb_j), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_j))
+    np.testing.assert_array_equal(req_t["mask"].numpy(),
+                                  np.asarray(req_j["mask"]))
+    assert int(req_t["traced_rays"]) == int(req_j["traced_rays"])
+    assert int(req_t["exhausted_rays"]) == int(req_j["exhausted_rays"]) == 0
+
+    # Both rescues had rays to resolve.  Without them the counts agree to
+    # within the few rays whose DDA steps fall on the starved budget's
+    # edge, where the packages' primary directions (equal to a few ulps)
+    # can take one step more or less.
+    monkeypatch.setattr(tpt, "RESCUE_PASSES", 0)
+    _, _, req0 = port_wave(world, key, tcfg)
+    n_port = int(req0["exhausted_rays"])
+    n_jax = int(jax_wave_without_rescue(world, key, jcfg)["exhausted_rays"])
+    assert n_port > 0 and n_jax > 0
+    assert abs(n_port - n_jax) <= 0.01 * n_jax
+
+
 def test_rescue_reports_when_starved(world, monkeypatch):
     monkeypatch.setattr(tpt, "RESCUE_TOP_STEPS", 1)
     monkeypatch.setattr(tpt, "RESCUE_PASSES", 1)

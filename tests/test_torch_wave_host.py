@@ -396,6 +396,14 @@ def test_cuda_starved_wave_equals_plain(scenes, cuda_device, monkeypatch):
     launches = kwave.rescue.launches
     got = pathtrace.render_wave(sc, arr, (2, 2, 12), cfg, W, H, uniforms=u)
     assert kwave.rescue.launches - launches == 3         # one a trace
+    # W4 had rays to rescue: without its passes the same wave leaves some
+    # exhausted.
+    passes = pathtrace.RESCUE_PASSES
+    monkeypatch.setattr(pathtrace, "RESCUE_PASSES", 0)
+    unrescued = pathtrace.render_wave(sc, arr, (2, 2, 12), cfg, W, H,
+                                      uniforms=u)
+    assert int(unrescued[2]["exhausted_rays"]) > 0
+    monkeypatch.setattr(pathtrace, "RESCUE_PASSES", passes)
     for name, plain in (("compact", owave.compact_plain),
                         ("primary", owave.primary_plain),
                         ("gather_clip", owave.gather_clip_plain),
