@@ -22,10 +22,20 @@
 // next block takes the shared storage.  As on the card, every thread of a
 // block (of a warp) must reach each `__syncthreads()` (`__syncwarp()`): a
 // kernel that returns early above one leaves the barrier's phases out of
-// step.  Other warp intrinsics are not here; inline PTX (`cp.async`) sits
-// under `__CUDA_ARCH__` with a plain C twin in the kernel source (the wave
-// kernels, csrc/wave.cu, keep their block reduction under __CUDA_ARCH__
-// and add with a plain atomic in this build).
+// step.  The warp intrinsics `__ballot_sync`, `__shfl_sync`,
+// `__shfl_up_sync` and `__reduce_add_sync` are exchanges through a 32-slot
+// array of the warp between two passes of its barrier: every lane of the
+// warp must reach the same call (a divergent call deadlocks, as a check).
+// `atomicAdd` on `int` and `unsigned long long` is `std::atomic_ref`,
+// `__threadfence` a sequentially consistent fence, `__trap` an abort.  The
+// occupancy calculator and the SM count describe a small card (2 SMs, 2
+// blocks of any kernel on each), so that a grid sized to the resident
+// blocks is smaller than the work and its blocks loop.  Inline PTX
+// (`cp.async`, acquire loads and release stores) sits under
+// `__CUDA_ARCH__` with a plain C twin in the kernel source.  Blocks run
+// one after another, so a block never waits on a later one: a kernel whose
+// blocks take their work from an atomic cursor, in order, finds every
+// earlier block's result published.
 #pragma once
 
 #include <math.h>
@@ -35,6 +45,7 @@
 #include <atomic>
 #include <barrier>
 #include <cstddef>
+#include <cstdlib>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -87,11 +98,20 @@ template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
-// A small card: 2 blocks of any kernel resident on an SM.
+// A small card: 2 SMs, 2 blocks of any kernel resident on an SM.
 template <class F>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     int* blocks, F, int, std::size_t) {
   *blocks = 2;
+  return cudaSuccess;
+}
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 2;
   return cudaSuccess;
 }
 
@@ -105,20 +125,89 @@ inline T __ldg(const T* p) {
 
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline int __popc(unsigned int v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+[[noreturn]] inline void __trap() { std::abort(); }
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
 
 inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
 }
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
 
-// The running block's barriers, and the launch's dynamic shared memory.
+// The running block's barriers, its warp's exchange slots, and the
+// launch's dynamic shared memory.
 inline thread_local std::barrier<>* block_barrier_ = nullptr;
 inline thread_local std::barrier<>* warp_barrier_ = nullptr;
+inline thread_local unsigned long long* warp_slots_ = nullptr;
+inline thread_local unsigned int warp_lanes_ = 32;
 inline unsigned char* dynamic_shared_ = nullptr;
 
 inline void __syncthreads() { block_barrier_->arrive_and_wait(); }
 inline void __syncwarp(unsigned int = 0xffffffffu) {
   warp_barrier_->arrive_and_wait();
+}
+
+// One exchange of the caller's warp: each lane puts `v` in its slot, the
+// warp meets, `f(slots, lane, lanes)` reads them, and the warp meets again
+// so that the slots are free for the next exchange.
+template <class T, class F>
+inline auto warp_exchange_(T v, F f) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long));
+  const unsigned int lane = threadIdx.x % 32;
+  unsigned long long word = 0;
+  memcpy(&word, &v, sizeof(T));
+  warp_slots_[lane] = word;
+  warp_barrier_->arrive_and_wait();
+  const auto r = f(warp_slots_, lane, warp_lanes_);
+  warp_barrier_->arrive_and_wait();
+  return r;
+}
+
+template <class T>
+inline T slot_as_(unsigned long long word) {
+  T v;
+  memcpy(&v, &word, sizeof(T));
+  return v;
+}
+
+inline unsigned int __ballot_sync(unsigned int, int pred) {
+  return warp_exchange_(pred != 0 ? 1 : 0, [](const unsigned long long* s,
+                                              unsigned int, unsigned int n) {
+    unsigned int bits = 0u;
+    for (unsigned int k = 0; k < n; ++k) bits |= (s[k] != 0u ? 1u : 0u) << k;
+    return bits;
+  });
+}
+
+template <class T>
+inline T __shfl_sync(unsigned int, T v, int src, int = 32) {
+  return warp_exchange_(v, [src](const unsigned long long* s, unsigned int,
+                                 unsigned int) {
+    return slot_as_<T>(s[src & 31]);
+  });
+}
+
+template <class T>
+inline T __shfl_up_sync(unsigned int, T v, unsigned int delta, int = 32) {
+  return warp_exchange_(v, [delta](const unsigned long long* s,
+                                   unsigned int lane, unsigned int) {
+    return slot_as_<T>(s[lane >= delta ? lane - delta : lane]);
+  });
+}
+
+template <class T>
+inline T __reduce_add_sync(unsigned int, T v) {
+  return warp_exchange_(v, [](const unsigned long long* s, unsigned int,
+                              unsigned int n) {
+    T sum = 0;
+    for (unsigned int k = 0; k < n; ++k) sum += slot_as_<T>(s[k]);
+    return sum;
+  });
 }
 
 // The launch: grid.x blocks of block.x threads (1-D, as the port's kernels
@@ -137,12 +226,15 @@ inline void launch_(dim3 grid, dim3 block, std::size_t shared_bytes,
     warp_bars.push_back(
         std::make_unique<std::barrier<>>(std::min(32u, nt - w * 32)));
   }
+  std::vector<unsigned long long> slots(warp_bars.size() * 32);
   auto worker = [&](unsigned int t) {
     gridDim = grid;
     blockDim = block;
     threadIdx = {t, 0, 0};
     block_barrier_ = &block_bar;
     warp_barrier_ = warp_bars[t / 32].get();
+    warp_slots_ = slots.data() + (t / 32) * 32;
+    warp_lanes_ = std::min(32u, nt - (t / 32) * 32);
     for (unsigned int b = 0; b < grid.x; ++b) {
       blockIdx = {b, 0, 0};
       body();

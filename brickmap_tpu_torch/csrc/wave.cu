@@ -3,7 +3,7 @@
 //
 // They have no Pallas twin: the JAX package leaves these stages to XLA,
 // which fuses each jitted stage into a few device programs.
-//   W0 compact_*_kernel    the pack index of _compact_trace (:59), a cumsum
+//   W0 compact_kernel      the pack index of _compact_trace (:59), a cumsum
 //                          over the live mask: the set rows' indices in
 //                          ascending order (torch.nonzero's) and their
 //                          count, both left on the device.
@@ -31,23 +31,28 @@
 // No host round trip.  The JAX wave picks its compaction bucket with
 // lax.switch and gates its rescue with lax.cond, both on device counts.
 // Here W0 writes the count on the device and W2, B2 and W4 read it there:
-// each launch covers the capacity (the wave's 2N rays, or a trace's
-// compacted ones) and a thread past the count returns at once.  A trace is
-// W0 -> W2 -> B2 -> W0 (exhausted) -> W4 with nothing copied to the host;
-// when nothing is exhausted, W4's threads all return.  W0 is two launches:
-// each 4096-row tile's count, then each tile's offset (the block sums the
-// counts of the tiles before it), the rows' ranks from a block scan, and
-// the writes.  A ray is independent of the others in a rescue pass, so
-// W4 runs a ray's passes back to back in one thread, in the passes' float
-// operations and order: its results equal the host loop's bit for bit.
+// W2's launch covers the capacity (the wave's 2N rays, or a trace's
+// compacted ones) and a thread past the count returns at once; W0 and W4
+// launch the blocks resident at once, which take their work from a cursor
+// in a scratch buffer the wrapper keeps (zeroed again by each launch, so a
+// launch carries no host state and a graph of the wave could replay it).
+// A trace is W0 -> W2 -> B2 -> W0 (exhausted) -> W4 with nothing copied to
+// the host; when nothing is exhausted, W4's blocks all return.  W0 is one
+// pass with a decoupled look-back: 4096-row tiles taken in order, each
+// tile's offset from the counts its predecessors published, its set rows
+// staged in shared memory and stored as one run.  A ray is independent of
+// the others in a rescue pass, so W4 runs a ray's passes back to back in
+// one thread, in the passes' float operations and order: its results equal
+// the host loop's bit for bit; its warps take 32 rays at a time.
 //
 // What bounds them on an H100: bytes.  W3 does ~400 float operations a lane
 // (three sky evaluations' exp/acos/pow, two cosines and sines, square
 // roots) and moves ~230 bytes, so at 67 TFLOP/s and 3.35 TB/s its bytes
 // take ~10x longer; W1 and W2 move 120 and 77 bytes a lane with less
-// arithmetic, W0 a byte a row and 4 a set row.  W4 is B2's walk, bound
-// as B2 is.  The design therefore keeps every lane's state in device
-// memory exactly once a stage: W1 writes the wave's [2N] ray buffers and
+// arithmetic, W0 a byte a row and 4 a set row (its launch, its look-back
+// chain and its empty tail bound it at the wave's sizes).  W4 is B2's
+// walk, bound as B2 is.  The design therefore keeps every lane's state in
+// device memory exactly once a stage: W1 writes the wave's [2N] ray buffers and
 // state in place; W2 writes B2's inputs directly (no separate gather, clip
 // or copy to contiguous); W3 reads B2's compacted results through W2's
 // position map (no scatter into full-size tensors) and writes the next
@@ -366,10 +371,55 @@ primary_kernel(int n, const long long* __restrict__ idx,
 
 // ---- W0 -----------------------------------------------------------------
 
-// A tile of kScanTile rows a block, kScanItems consecutive rows a thread.
+// A tile of kScanTile rows, kScanItems consecutive rows a thread.
 constexpr int kScanThreads = 256;
 constexpr int kScanItems = 16;
 constexpr int kScanTile = kScanThreads * kScanItems;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr unsigned int kFullWarp = 0xffffffffu;
+
+// The scratch a wrapper holds for each device and stream
+// (kernels/wave.py::scratch): four int counters (two 64-bit words), then
+// W0's status word a tile.  Every launch leaves it zeroed: the last block
+// out resets what the launch used.
+enum Ctl { kW0Cursor = 0, kW0Exits, kW4Cursor, kW4Exits };
+constexpr int kCtlWords = 2;
+// A tile's status: a flag in bits 32-33 over a count in bits 0-31, the
+// tile's own (kAggregate) or with every tile before it (kInclusive); 0
+// while the tile is unpublished.
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kInclusive = 2ull << 32;
+// Polls of an unpublished status the host build allows: its blocks run in
+// order, so each earlier tile is published before a later block reads it.
+constexpr int kHostSpins = 1 << 20;
+
+// A status read with acquire and published with release order at the
+// device's scope (L2: never a stale L1 line).  In the host build a
+// volatile access: a block's threads meet at barriers, and its blocks run
+// one after another.
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+#ifdef __CUDA_ARCH__
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+#else
+  return *static_cast<const volatile unsigned long long*>(p);
+#endif
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long flag,
+                                             int n) {
+  const unsigned long long v = flag | static_cast<unsigned int>(n);
+#ifdef __CUDA_ARCH__
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+#else
+  *static_cast<volatile unsigned long long*>(p) = v;
+#endif
+}
 
 // The rows of the mask the compaction reads: all `cap`, or the first
 // *limit of them (the exhausted rays among a trace's compacted ones).
@@ -398,69 +448,124 @@ __device__ __forceinline__ unsigned int tile_bits(
   return bits;
 }
 
-__device__ __forceinline__ int popcount16(unsigned int bits) {
-  int c = 0;
-  for (int k = 0; k < kScanItems; ++k) c += (bits >> k) & 1u;
-  return c;
+// The set rows of tiles [0, tile): a look-back by the calling warp over the
+// statuses of the tiles before `tile`, 32 at a time, nearest first, adding
+// aggregates until one status is inclusive.  Every lane must call it, and
+// every lane gets the sum.  A status still 0 belongs to a tile that a
+// running block took from the cursor before this one: it publishes its
+// aggregate without waiting on anything.
+__device__ __forceinline__ int look_back(const unsigned long long* status,
+                                         int tile) {
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  int before = 0;
+  for (int end = tile - 1;; end -= 32) {
+    const int p = end - lane;
+    unsigned long long s = kInclusive;  // before tile 0: an inclusive 0
+    if (p >= 0) {
+      for (int spins = 0; ((s = load_status(status + p)) >> 32) == 0;
+           ++spins) {
+#ifndef __CUDA_ARCH__
+        if (spins > kHostSpins) __trap();
+#endif
+      }
+    }
+    const unsigned int inclusive =
+        __ballot_sync(kFullWarp, (s & kInclusive) != 0);
+    const int stop = inclusive != 0u ? __ffs(inclusive) - 1 : 31;
+    before += __reduce_add_sync(
+        kFullWarp, lane <= stop ? static_cast<int>(s & 0xFFFFFFFFull) : 0);
+    if (inclusive != 0u) return before;
+  }
 }
 
-// Exclusive prefix sum of v over the block's threads (Hillis-Steele in
-// shared memory), and the block's total.  Every thread must call it.
-__device__ __forceinline__ int block_scan(int v, int& total) {
-  __shared__ int buf[2][kScanThreads];
-  int cur = 0;
-  buf[0][threadIdx.x] = v;
+// One launch a compaction, a single pass with a decoupled look-back
+// (Merrill and Garland, 2016).  A grid of the blocks resident at once takes
+// tiles in order from the scratch's cursor until they run out.  A tile:
+// its mask read once (16 bytes a thread), each thread's rank from a warp
+// shuffle scan of the threads' counts and the warps' sums, the tile's
+// count published as an aggregate, then warp 0's look-back gives the count
+// before it and publishes the inclusive count, while the other warps stage
+// the tile's set rows in shared memory at their ranks; then the block
+// stores them as one contiguous run at the offset.  The block with the last
+// tile writes the count; the last block out zeroes the statuses and
+// counters the launch used.  A tile waits only on tiles taken before it,
+// by blocks that are running, so the grid cannot deadlock.
+__global__ void __launch_bounds__(kScanThreads)
+compact_kernel(int cap, const unsigned char* __restrict__ mask,
+               const int* __restrict__ limit, int* __restrict__ out,
+               int* __restrict__ count,
+               unsigned long long* __restrict__ scratch) {
+  __shared__ int stage[kScanTile];
+  __shared__ int warp_sums[kScanWarps];
+  __shared__ int next_tile, offset, last_out;
+  int* const ctl = reinterpret_cast<int*>(scratch);
+  unsigned long long* const status = scratch + kCtlWords;
+  const int rows = mask_rows(cap, limit);
+  const int tiles = (rows + kScanTile - 1) / kScanTile;
+  if (tiles == 0) {  // every block returns: nothing was taken
+    if (blockIdx.x == 0 && threadIdx.x == 0) *count = 0;
+    return;
+  }
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  if (threadIdx.x == 0) next_tile = atomicAdd(ctl + kW0Cursor, 1);
   __syncthreads();
-  for (int s = 1; s < kScanThreads; s <<= 1) {
-    const int x = buf[cur][threadIdx.x] +
-                  (static_cast<int>(threadIdx.x) >= s
-                       ? buf[cur][threadIdx.x - s] : 0);
-    cur ^= 1;
-    buf[cur][threadIdx.x] = x;
+  for (int tile = next_tile; tile < tiles; tile = next_tile) {
+    const int base = tile * kScanTile;
+    const unsigned int bits = tile_bits(mask, rows, base);
+    const int own = __popc(bits);
+    int rank = own;  // the warp's inclusive scan of its threads' counts
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(kFullWarp, rank, d);
+      if (lane >= d) rank += up;
+    }
+    if (lane == 31) warp_sums[warp] = rank;
+    __syncthreads();
+    rank -= own;
+    int total = 0;
+    for (int w = 0; w < kScanWarps; ++w) {
+      const int v = warp_sums[w];
+      rank += w < warp ? v : 0;
+      total += v;
+    }
+    if (warp == 0) {
+      int before = 0;
+      if (tile == 0) {
+        if (lane == 0) store_status(status, kInclusive, total);
+      } else {
+        if (lane == 0) store_status(status + tile, kAggregate, total);
+        before = look_back(status, tile);
+        if (lane == 0) store_status(status + tile, kInclusive, before + total);
+      }
+      if (lane == 0) offset = before;
+    }
+    const int r0 = base + static_cast<int>(threadIdx.x) * kScanItems;
+    for (int k = 0; k < kScanItems; ++k) {
+      if ((bits >> k) & 1u) stage[rank++] = r0 + k;
+    }
+    __syncthreads();
+    const int before = offset;
+    if (threadIdx.x == 0) next_tile = atomicAdd(ctl + kW0Cursor, 1);
+    for (int j = static_cast<int>(threadIdx.x); j < total; j += kScanThreads) {
+      out[before + j] = stage[j];
+    }
+    if (tile == tiles - 1 && threadIdx.x == 0) *count = before + total;
     __syncthreads();
   }
-  const int incl = buf[cur][threadIdx.x];
-  total = buf[cur][kScanThreads - 1];
-  __syncthreads();  // the buffer is free again
-  return incl - v;
-}
-
-// Pass 1: each tile's count of set rows.
-__global__ void __launch_bounds__(kScanThreads)
-compact_count_kernel(int cap, const unsigned char* __restrict__ mask,
-                     const int* __restrict__ limit, int* __restrict__ parts) {
-  const int rows = mask_rows(cap, limit);
-  int total;
-  block_scan(popcount16(tile_bits(mask, rows, blockIdx.x * kScanTile)),
-             total);
-  if (threadIdx.x == 0) parts[blockIdx.x] = total;
-}
-
-// Pass 2: each tile's offset (the counts of the tiles before it, summed by
-// the block), the rows' ranks within the tile, and the set rows' indices
-// written in ascending order; the last tile writes the count.
-__global__ void __launch_bounds__(kScanThreads)
-compact_write_kernel(int cap, const unsigned char* __restrict__ mask,
-                     const int* __restrict__ limit,
-                     const int* __restrict__ parts, int* __restrict__ out,
-                     int* __restrict__ count) {
-  const int rows = mask_rows(cap, limit);
-  int before = 0;
-  for (int b = threadIdx.x; b < static_cast<int>(blockIdx.x);
-       b += kScanThreads) {
-    before += parts[b];
+  // Every block counts itself out after its last look-back; the last one
+  // out resets the statuses and the counters for the next launch.
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last_out = atomicAdd(ctl + kW0Exits, 1) ==
+               static_cast<int>(gridDim.x) - 1;
   }
-  int offset, total;
-  block_scan(before, offset);
-  const int base = blockIdx.x * kScanTile;
-  const unsigned int bits = tile_bits(mask, rows, base);
-  int r = offset + block_scan(popcount16(bits), total);
-  const int r0 = base + static_cast<int>(threadIdx.x) * kScanItems;
-  for (int k = 0; k < kScanItems; ++k) {
-    if ((bits >> k) & 1u) out[r++] = r0 + k;
-  }
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
-    *count = offset + total;
+  __syncthreads();
+  if (last_out) {
+    for (int t = static_cast<int>(threadIdx.x); t < tiles;
+         t += kScanThreads) {
+      status[t] = 0ull;
+    }
+    if (threadIdx.x == 0) ctl[kW0Cursor] = ctl[kW0Exits] = 0;
   }
 }
 
@@ -541,6 +646,11 @@ gather_clip_kernel(const int* __restrict__ count,
 // ---- W4 -----------------------------------------------------------------
 
 constexpr int kRescueThreads = 128;
+// Blocks of W4 an SM: 7 (28 warps), one fewer than its 63 registers
+// allow.  On view 0's 1,764,177 starved primaries 8 blocks an SM took
+// 0.594-0.625 ms, 7 0.551-0.572 and 6 0.565 (notes/probe_torch_w0w4.py,
+// H100 80GB HBM3).
+constexpr int kRescueBlocksPerSm = 7;
 
 // B2's results over a trace's compacted rays, rewritten by the rescue.
 struct Rescued {
@@ -549,23 +659,17 @@ struct Rescued {
   int* request_pos;
 };
 
-// The exhausted rays rows[j], j < *count (W0 over B2's `exhausted`),
-// re-traced up to `passes` times with the escalated budget (P.max_iters),
-// each pass from 2 voxels before the entry of the cell the last one
-// stopped in (the prefix is known empty): the passes of the host loop
-// (ops/wave.py::rescue_plain) for one ray, W2's clip and B2's walk
+// The exhausted ray at row `at` of B2's results (lane lanes[at] of the
+// wave's buffers) re-traced up to `passes` times with the escalated budget
+// (P.max_iters), each pass from 2 voxels before the entry of the cell the
+// last one stopped in (the prefix is known empty): the passes of the host
+// loop (ops/wave.py::rescue_plain) for one ray, W2's clip and B2's walk
 // (traverse_walk.inc) in their operation order.
-__global__ void __launch_bounds__(kRescueThreads)
-rescue_kernel(const int* __restrict__ count, const int* __restrict__ rows,
-              const int* __restrict__ lanes,
-              const float* __restrict__ rays_o,
-              const float* __restrict__ rays_d, Box box,
-              bm::TraverseParams P, int passes,
-              const int* __restrict__ iv, const int* __restrict__ pool,
-              const int* __restrict__ pool_base, Rescued res) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (passes <= 0 || j >= *count) return;
-  const int at = rows[j];  // the ray's row in B2's results
+__device__ __forceinline__ void rescue_ray(
+    int at, const int* __restrict__ lanes, const float* __restrict__ rays_o,
+    const float* __restrict__ rays_d, Box box, bm::TraverseParams P,
+    int passes, const int* __restrict__ iv, const int* __restrict__ pool,
+    const int* __restrict__ pool_base, Rescued res) {
   const int lane = lanes[at];
   float resume = res.resume[at];
   bool r_hit = false, r_request = false, exhausted = true;
@@ -609,6 +713,47 @@ rescue_kernel(const int* __restrict__ count, const int* __restrict__ rows,
   for (int a = 0; a < 3; ++a) res.request_pos[3 * at + a] = r_pos[a];
   res.exhausted[at] = exhausted;
   res.resume[at] = resume;
+}
+
+// The exhausted rays rows[j], j < *count (W0 over B2's `exhausted`), each
+// rescued by one thread.  A grid of at most kRescueBlocksPerSm blocks an
+// SM, which stay resident; each warp takes the next 32 rows from the
+// scratch's cursor until they run out, so a warp whose rays end early
+// starts new ones while the long rays run on.  The count is read again at
+// each fetch: held in a register across the rays, it lengthened the
+// walk's inner loops by 3 instructions (49 -> 52 in the SASS) and cost
+// ~6% (notes/probe_torch_w0w4.py).  With a count of 0 every block returns
+// at once and the cursor is left alone; otherwise the last block out
+// resets it.
+__global__ void __launch_bounds__(kRescueThreads, 8)
+rescue_kernel(const int* __restrict__ count, const int* __restrict__ rows,
+              const int* __restrict__ lanes,
+              const float* __restrict__ rays_o,
+              const float* __restrict__ rays_d, Box box,
+              bm::TraverseParams P, int passes,
+              const int* __restrict__ iv, const int* __restrict__ pool,
+              const int* __restrict__ pool_base, Rescued res,
+              int* __restrict__ ctl) {
+  if (passes <= 0 || *count <= 0) return;
+  for (;;) {
+    const int lane = static_cast<int>(threadIdx.x) % 32;
+    int first = 0;
+    if (lane == 0) first = atomicAdd(ctl + kW4Cursor, 32);
+    first = __shfl_sync(kFullWarp, first, 0);
+    const int n = *count;
+    if (first >= n) break;
+    if (first + lane < n) {
+      rescue_ray(rows[first + lane], lanes, rays_o, rays_d, box, P, passes,
+                 iv, pool, pool_base, res);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(ctl + kW4Exits, 1) == static_cast<int>(gridDim.x) - 1) {
+      ctl[kW4Cursor] = ctl[kW4Exits] = 0;
+    }
+  }
 }
 
 // ---- W3 -----------------------------------------------------------------
@@ -764,6 +909,25 @@ shade_kernel(int n, int bounce, int max_bounces, int final_pass,
   add_counts(counters, n_traced, n_exhausted);
 }
 
+// Blocks of `kernel` (`threads` threads each) resident at once on the
+// current device: its SMs times the occupancy calculator's blocks an SM (at
+// most `per_sm_cap`), kept per device in `cache`.
+template <class K>
+int resident_blocks(K kernel, int threads, int (&cache)[64],
+                    int per_sm_cap = 1 << 30) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  int& slot = cache[dev & 63];
+  if (slot == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  0);
+    slot = max(sms * min(per_sm, per_sm_cap), 1);
+  }
+  return slot;
+}
+
 }  // namespace
 
 extern "C" int wave_primary_launch(
@@ -783,15 +947,16 @@ extern "C" int wave_primary_launch(
 }
 
 extern "C" int wave_compact_launch(int cap, const unsigned char* mask,
-                                   const int* limit, int* parts, int* out,
-                                   int* count, void* stream) {
+                                   const int* limit, int* out, int* count,
+                                   unsigned long long* scratch,
+                                   void* stream) {
+  static int resident[64] = {};
   if (cap > 0) {
     const int tiles = (cap + kScanTile - 1) / kScanTile;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    compact_count_kernel<<<tiles, kScanThreads, 0, s>>>(cap, mask, limit,
-                                                        parts);
-    compact_write_kernel<<<tiles, kScanThreads, 0, s>>>(cap, mask, limit,
-                                                        parts, out, count);
+    compact_kernel<<<min(tiles, resident_blocks(compact_kernel, kScanThreads,
+                                                resident)),
+                     kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        cap, mask, limit, out, count, scratch);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -823,7 +988,8 @@ extern "C" int wave_rescue_launch(
     int cam_z, int lod8, int lod2, int brick_size, float epsilon, int budget,
     int passes, unsigned char* hit, float* t, float* normal,
     unsigned char* request, int* request_pos, unsigned char* exhausted,
-    float* resume_t, void* stream) {
+    float* resume_t, unsigned long long* scratch, void* stream) {
+  static int resident[64] = {};
   const Box box{{hi_x, hi_y, hi_z}, {center_x, center_y, center_z}, scale_xy,
                 eps};
   const bm::TraverseParams P{cells_x, cells_y, cells_z, sc_size, sc_xy,
@@ -832,10 +998,13 @@ extern "C" int wave_rescue_launch(
   const Rescued res{hit, request, exhausted, t, normal, resume_t,
                     request_pos};
   if (cap > 0) {
-    rescue_kernel<<<(cap + kRescueThreads - 1) / kRescueThreads,
+    const int need = (cap + kRescueThreads - 1) / kRescueThreads;
+    rescue_kernel<<<min(need, resident_blocks(rescue_kernel, kRescueThreads,
+                                              resident, kRescueBlocksPerSm)),
                     kRescueThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         count, rows, lanes, rays_o, rays_d, box, P, passes,
-        index_volume, pool_words, pool_base, res);
+        index_volume, pool_words, pool_base, res,
+        reinterpret_cast<int*>(scratch));
   }
   return static_cast<int>(cudaGetLastError());
 }

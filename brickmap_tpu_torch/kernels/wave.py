@@ -5,9 +5,9 @@ The JAX package leaves these stages to XLA, which fuses each jitted stage
 runs them as hand-written CUDA kernels (``csrc/wave.cu``), one thread per
 lane, ray or row:
 
-* :func:`compact` (W0, ``compact_count_kernel`` + ``compact_write_kernel``):
-  ``_compact_trace``'s pack index, the set rows of a mask in ascending
-  order and their count, both left on the device;
+* :func:`compact` (W0, ``compact_kernel``): ``_compact_trace``'s pack
+  index, the set rows of a mask in ascending order and their count, both
+  left on the device, in one single-pass launch;
 * :func:`primary` (W1, ``primary_kernel``): ``_primary_state`` — the
   lanes' primary rays and the wave's initial state, written into the
   state's buffers (:func:`brickmap_tpu_torch.ops.wave.new_state`);
@@ -23,11 +23,16 @@ lane, ray or row:
   rays re-traced with the escalated budget, all passes of a ray in one
   thread, their results written back at their rows.
 
+W0 and W4 launch the blocks resident at once, which take tiles (W0) or 32
+rays a warp (W4) from a cursor in :func:`scratch`, a buffer held for each
+device and stream; each launch leaves it zeroed, so the launches carry no
+per-call host state.
+
 W2, B2 and W4 read W0's count on the device, so a trace makes no host round
 trip.  For tensors on the CPU each wrapper runs its plain version
 (:mod:`brickmap_tpu_torch.ops.wave`); on any other device than the CPU or
-CUDA it raises.  Each counts its kernel's launches in ``.launches`` (W0's
-two kernels as one) and has the ``.events`` hook of
+CUDA it raises.  Each counts its kernel's launches in ``.launches`` and
+has the ``.events`` hook of
 :mod:`brickmap_tpu_torch.kernels`.  :func:`compact_args`,
 :func:`primary_args`, :func:`gather_clip_args`, :func:`shade_args` and
 :func:`rescue_args` build the launchers' ctypes arguments (the host
@@ -51,8 +56,8 @@ from . import build, hooked
 from . import traverse as ktrav
 
 __all__ = ["compact", "primary", "gather_clip", "shade", "rescue",
-           "sky_constants", "compact_args", "primary_args",
-           "gather_clip_args", "shade_args", "rescue_args"]
+           "sky_constants", "scratch", "scratch_words", "compact_args",
+           "primary_args", "gather_clip_args", "shade_args", "rescue_args"]
 
 _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
 _CAMERA_KEYS = ("position", "direction", "right", "up", "focal_distance",
@@ -67,7 +72,7 @@ def _bind(lib) -> None:
     lib.wave_gather_clip_launch.argtypes = (
         [i, p, p, p, p, p] + [f] * 8 + [p] * 5 + [p])
     lib.wave_rescue_launch.argtypes = (
-        [i] + [p] * 5 + [f] * 8 + [p] * 3 + [i] * 12 + [f, i, i] + [p] * 7
+        [i] + [p] * 5 + [f] * 8 + [p] * 3 + [i] * 12 + [f, i, i] + [p] * 8
         + [p])
     lib.wave_shade_launch.argtypes = (
         [i] * 4 + [p] * 4 + [p] * 6 + [p] * 5 + [p] * 4 + [p, p, f]
@@ -138,20 +143,39 @@ def sky_constants(sky: SunSkyConfig, device) -> torch.Tensor:
 
 # ---- W0 -------------------------------------------------------------------
 
-_SCAN_TILE = 4096   # rows a block of W0 (csrc/wave.cu: kScanTile)
+_SCAN_TILE = 4096   # rows a tile of W0 (csrc/wave.cu: kScanTile)
+_scratch: dict = {}
 
 
-def compact_args(mask, limit, parts, out, count, stream) -> tuple:
-    """``wave_compact_launch``'s arguments: ``parts`` holds a count a tile
-    (:func:`compact_tiles` of them), ``out`` and ``count`` are
-    :func:`compact`'s result."""
-    return (mask.shape[0], mask.data_ptr(), _ptr(limit), parts.data_ptr(),
-            out.data_ptr(), count.data_ptr(), stream)
+def scratch_words(rows: int) -> int:
+    """Words (int64) of W0's and W4's scratch for masks of up to ``rows``
+    rows: four int32 counters (csrc/wave.cu: ``Ctl``), then a status word
+    a tile."""
+    return 2 + -(-rows // _SCAN_TILE)
 
 
-def compact_tiles(rows: int) -> int:
-    """W0's tiles (blocks) over ``rows`` rows."""
-    return -(-rows // _SCAN_TILE)
+def scratch(device) -> torch.Tensor:
+    """The scratch of W0 and W4 on ``device``'s current stream: int64
+    [:func:`scratch_words` (``MAX_RAYS``)], zeroed once when first asked
+    for.  Every launch leaves it zeroed again (its last block out resets
+    what it used), so launches in order on one stream share it."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.zeros(scratch_words(build.MAX_RAYS),
+                                          dtype=_I64, device=dev)
+    return buf
+
+
+def compact_args(mask, limit, out, count, scratch_, stream) -> tuple:
+    """``wave_compact_launch``'s arguments: ``out`` and ``count`` are
+    :func:`compact`'s result, ``scratch_`` a zeroed int64 tensor of at
+    least :func:`scratch_words` (rows of the mask) words."""
+    return (mask.shape[0], mask.data_ptr(), _ptr(limit), out.data_ptr(),
+            count.data_ptr(), scratch_.data_ptr(), stream)
 
 
 def compact(mask, limit=None) -> tuple:
@@ -177,13 +201,12 @@ def compact(mask, limit=None) -> tuple:
     count = torch.empty(1, dtype=_I32, device=dev)
     if not m:
         return out, count.zero_()
-    parts = torch.empty(compact_tiles(m), dtype=_I32, device=dev)
     lib = build.load("wave", _bind)
     with torch.cuda.device(dev):
         status = hooked(compact, lib.wave_compact_launch, *compact_args(
-            mask, limit, parts, out, count,
+            mask, limit, out, count, scratch(dev),
             torch.cuda.current_stream(dev).cuda_stream))
-    build.check(status, "compact_count_kernel/compact_write_kernel")
+    build.check(status, "compact_kernel")
     compact.launches += 1
     return out, count
 
@@ -400,13 +423,16 @@ _RESCUED = (("hit", torch.bool, ()), ("t", _F32, ()), ("normal", _F32, (3,)),
 
 
 def rescue_args(res: dict, rows, count, lanes, rays_o, rays_d, scene, cam,
-                grid: GridConfig, budget: int, passes: int, stream) -> tuple:
-    """``wave_rescue_launch``'s arguments."""
+                grid: GridConfig, budget: int, passes: int, scratch_,
+                stream) -> tuple:
+    """``wave_rescue_launch``'s arguments (``scratch_`` as
+    :func:`compact_args` takes it)."""
     return (rows.shape[0], count.data_ptr(), rows.data_ptr(),
             lanes.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(),
             *_box_args(grid),
             *ktrav.walk_args(scene.index_volume, scene, cam, grid, budget),
-            passes, *(res[k].data_ptr() for k, _, _ in _RESCUED), stream)
+            passes, *(res[k].data_ptr() for k, _, _ in _RESCUED),
+            scratch_.data_ptr(), stream)
 
 
 def rescue(res: dict, rows, count, lanes, rays_o, rays_d, scene, cam_brick,
@@ -417,8 +443,9 @@ def rescue(res: dict, rows, count, lanes, rays_o, rays_d, scene, cam_brick,
     ``passes`` times, each pass from 2 voxels before the entry of the cell
     the last stopped in; their results (B2's keys and ``resume_t``) are
     written into ``res`` at their rows.  Rays still exhausted after the
-    passes keep the flag.  One launch over the capacity of ``rows``; the
-    count is read on the device, and when it is 0 every thread returns."""
+    passes keep the flag.  One launch of the blocks resident at once (at
+    most one thread a row of ``rows``); the count is read on the device,
+    and when it is 0 every block returns."""
     dev = rows.device
     cam = tuple(int(c) for c in cam_brick)
     if dev.type == "cpu":
@@ -447,7 +474,8 @@ def rescue(res: dict, rows, count, lanes, rays_o, rays_d, scene, cam_brick,
     with torch.cuda.device(dev):
         status = hooked(rescue, lib.wave_rescue_launch, *rescue_args(
             res, rows, count, lanes, rays_o, rays_d, scene, cam, grid,
-            budget, passes, torch.cuda.current_stream(dev).cuda_stream))
+            budget, passes, scratch(dev),
+            torch.cuda.current_stream(dev).cuda_stream))
     build.check(status, "rescue_kernel")
     rescue.launches += 1
 

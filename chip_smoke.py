@@ -46,9 +46,12 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    the tile permutation), each from the same state as its plain version
    and equal to it (state, W0's indices and count, B2's inputs and
    outputs, W4's results; NaN equal to NaN; 0 mask flips), each timed
-   alone beside its bound (W1, W0 and W2 at bounces 0 and 1 with
-   ``torch.nonzero`` beside W0, W3 at bounces 0 and 1 and the final
-   pass).  W0 and W4 again where rays exhaust: view 0's primaries traced
+   alone beside its bound (W1, W0 and W2 at bounces 0 and 1, W0 also over
+   trace 0's exhausted rows, with ``torch.nonzero`` beside every W0 shape
+   and W0 timed both with its launches queued behind a device sleep and by
+   events around each call; W3 at bounces 0 and 1 and the final pass; W4
+   at a zero count and on each trace's exhausted rays).  W0 and W4 again
+   where rays exhaust: view 0's primaries traced
    with a starved budget, rescued with the wave's budget (none left) and
    with a starved one (some left), against the plain rescue passes, and
    W4 timed there.  One view-0 wave under
@@ -818,7 +821,9 @@ def main() -> int:
         print(f"  W1 at {n} lanes: state equal to the plain version's "
               f"(rays, live, map, accum, requests, counters)", flush=True)
         flips = 0
-        w0rec = {}     # shape -> (rows, set rows, ms, plain ms, nonzero ms)
+        # W0 shape -> (rows, set rows, queued ms, events ms, plain ms,
+        # torch.nonzero ms); W4 trace -> (rays, ms, bound ms, by)
+        w0rec, w4rec = {}, {}
         w4_err = [0.0]
         w0_err = [0.0]
         rescue_args = pathtrace.rescue_budget(cfg), pathtrace.RESCUE_PASSES
@@ -861,18 +866,55 @@ def main() -> int:
                         (got[k][:m] - want[k][:m]).abs().max()))
             return want
 
+        def w4_bound(n_w4, stats):
+            """W4's least time on ``n_w4`` rays whose passes the plain
+            rescue counted in ``stats``: per ray its row and lane (8 B), ray
+            (24), resume_t (4) read, B2's seven keys (35) written; then each
+            distinct index word (4 B) and brick row (64 B) its passes read;
+            12 operations a step.  Returns (ms, by)."""
+            nbytes = n_w4 * 71 + 4 * int(stats["cells_read"].sum()) \
+                + 64 * int(stats["rows_read"].sum())
+            return bound(nbytes, stats["steps"] * DDA_STEP_OPS)
+
+        def time_w4(res, rows, n_rows, lanes, stats):
+            """W4 alone on copies of B2's results (restored before each
+            launch, outside its events): (rays, ms, bound ms, by)."""
+            work = {k: v.clone() for k, v in res.items()}
+
+            def run():
+                for k, v in res.items():
+                    work[k].copy_(v)
+                kwave.rescue(work, rows, n_rows, lanes, st["rays_o"],
+                             st["rays_d"], world, cam_b, cfg.grid,
+                             *rescue_args)
+            n_w4 = int(n_rows)
+            return (n_w4, alone_ms(kwave.rescue, run, 3),
+                    *w4_bound(n_w4, stats))
+
+        def time_w0(shape, mask, limit=None):
+            """W0 alone on ``mask`` (its first ``limit`` rows): launches
+            queued behind a device sleep (the device's time a launch, as a
+            wave pays it), and CUDA events around each call with the host
+            not ahead (mostly the launch's submission); the plain version
+            and ``torch.nonzero`` (which synchronises) beside it."""
+            rows_ = mask.shape[0] if limit is None else int(limit)
+            head = mask[:rows_]
+            w0rec[shape] = (
+                rows_, int(head.sum()),
+                benchmark.kernel_alone_ms(
+                    [lambda: kwave.compact(mask, limit)], 50),
+                alone_ms(kwave.compact, lambda: kwave.compact(mask, limit),
+                         5),
+                host_ms(lambda: owave.compact_plain(mask, limit)),
+                cuda_ms(lambda: torch.nonzero(head), 5))
+
         for bounce in range(nb + 2):
             final = bounce == nb + 1
             shape = "final" if final else f"bounce {bounce}"
             lanes, count = w0_equal(f"trace {bounce}", st["live"])
             m = int(count)
             if bounce <= 1:
-                live = st["live"]
-                w0rec[shape] = (
-                    live.shape[0], m,
-                    alone_ms(kwave.compact, lambda: kwave.compact(live), 5),
-                    host_ms(lambda: owave.compact_plain(live)),
-                    cuda_ms(lambda: torch.nonzero(live), 5))
+                time_w0(shape, st["live"])
             inp = kwave.gather_clip(st["rays_o"], st["rays_d"], lanes, count,
                                     cfg.grid, pos=st["pos"])
             inp_p = owave.gather_clip_plain(ref["rays_o"], ref["rays_d"],
@@ -896,8 +938,16 @@ def main() -> int:
             del inp, inp_p
             rows, n_rows = w0_equal(f"exhausted {bounce}", res["exhausted"],
                                     count)
+            if bounce == 0:
+                time_w0("the exhausted rows, trace 0", res["exhausted"],
+                        count)
+                res_cap, rows_cap, lanes_cap = res, rows, lanes
+            stats = {}
             w4_equal(f"trace {bounce}", res, rows, n_rows, lanes, m,
-                     *rescue_args)
+                     *rescue_args, stats)
+            if int(n_rows):
+                w4rec[f"trace {bounce}"] = time_w4(
+                    res, rows, n_rows, lanes, stats)
             kwave.rescue(res, rows, n_rows, lanes, st["rays_o"],
                          st["rays_d"], world, cam_b, cfg.grid, *rescue_args)
             print(f"  W0, W2, W4 trace {bounce}: {m} rays of "
@@ -956,11 +1006,27 @@ def main() -> int:
             print(f"  {kind} alone at {shape}: {ms:.4f} ms (plain "
                   f"{pms:.3f} ms), bound {bms:.4f} ms by {by} "
                   f"({100 * bms / ms:.1f}%)", flush=True)
-        for shape, (rows_, set_, ms, pms, nz_ms) in w0rec.items():
+        for shape, (rows_, set_, ms, ev_ms, pms, nz_ms) in w0rec.items():
             bms, by = bound(rows_ + 4 * set_, 0)
             print(f"  W0 alone at {shape} ({rows_} rows, {set_} set): "
-                  f"{ms:.4f} ms (plain {pms:.3f} ms, torch.nonzero "
-                  f"{nz_ms:.4f} ms), bound {bms:.4f} ms by {by} "
+                  f"{ms:.4f} ms queued, {ev_ms:.4f} ms by events around the "
+                  f"call (plain {pms:.3f} ms, torch.nonzero {nz_ms:.4f} ms),"
+                  f" bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f}%)",
+                  flush=True)
+        # W4 at a zero count over the capacity (the wave's common case):
+        # launches queued behind a device sleep; its bound reads the count.
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        w4_zero_ms = benchmark.kernel_alone_ms([lambda: kwave.rescue(
+            res_cap, rows_cap, zero, lanes_cap, st["rays_o"], st["rays_d"],
+            world, cam_b, cfg.grid, *rescue_args)], 50)
+        bms, by = bound(4, 0)
+        print(f"  W4 alone at a zero count over {rows_cap.shape[0]} rows: "
+              f"{w4_zero_ms:.4f} ms queued, bound {bms:.6f} ms by {by}",
+              flush=True)
+        del res_cap, rows_cap, lanes_cap
+        for trace, (n_w4, ms, bms, by) in w4rec.items():
+            print(f"  W4 alone at {trace}'s {n_w4} exhausted rays: "
+                  f"{ms:.4f} ms, bound {bms:.4f} ms by {by} "
                   f"({100 * bms / ms:.1f}%)", flush=True)
         print(f"  W1-W3: 0 mask flips, max |kernel - plain| {w_err[0]}; "
               f"ptxas {ptxas_line('wave')}", flush=True)
@@ -1005,16 +1071,11 @@ def main() -> int:
             {k: v.clone() for k, v in saved.items()}, rows, n_rows, lanes,
             st["rays_o"], st["rays_d"], world, cam_b, cfg.grid,
             *rescue_args), reps=1)
-        # Per rescued ray: its row and lane (8 B), ray (24), resume_t (4)
-        # read, B2's seven keys (35) written; then each distinct index word
-        # (4 B) and brick row (64 B) its passes read; 12 operations a step.
-        w4_bytes = n_exh * 71 + 4 * int(w4_stats["cells_read"].sum()) \
-            + 64 * int(w4_stats["rows_read"].sum())
-        w4_bound, w4_by = bound(w4_bytes, w4_stats["steps"] * DDA_STEP_OPS)
+        w4_bms, w4_by = w4_bound(n_exh, w4_stats)
         print(f"  W4 alone on the {n_exh} rays: {w4_ms:.4f} ms (plain "
-              f"{w4_plain_ms:.1f} ms), {w4_stats['steps']} DDA steps, "
-              f"{w4_bytes} bytes -> bound {w4_bound:.4f} ms by {w4_by} "
-              f"({100 * w4_bound / w4_ms:.1f}%)", flush=True)
+              f"{w4_plain_ms:.1f} ms), {w4_stats['steps']} DDA steps -> "
+              f"bound {w4_bms:.4f} ms by {w4_by} "
+              f"({100 * w4_bms / w4_ms:.1f}%)", flush=True)
         del res, saved
 
         # One view-0 wave with every synchronising call an error: no host
@@ -1194,14 +1255,14 @@ def main() -> int:
                 "max_abs_err": w_err[0], "ms": ms, "plain_ms": pms,
                 "bound_ms": bms, "bound_by": by, "library_ms": None}
         # W0 at bounce 0's live mask (2N rows, N set): 1 B read a row, 4 B
-        # written a set row; the library call is torch.nonzero.
-        rows_, set_, ms, pms, nz_ms = w0rec["bounce 0"]
+        # written a set row; the library call is torch.nonzero.  "ms" is
+        # compact_kernel's time with its launches queued behind a device
+        # sleep (events around a call with the host not ahead time the
+        # launch's submission instead).
+        rows_, set_, ms, _, pms, nz_ms = w0rec["bounce 0"]
         bms, by = bound(rows_ + 4 * set_, 0)
-        # W0 is two kernels a launch (compact_count_kernel, then
-        # compact_write_kernel): "launches" counts the wrapper's launches,
-        # "ms" both kernels.
         records["W0"] = {
-            "name": "compact (W0: 2 kernels a launch)", "route": "cuda",
+            "name": "compact (W0)", "route": "cuda",
             "source": "brickmap_tpu_torch/csrc/wave.cu",
             "replaces": "brickmap_tpu/render/pathtrace.py:59",
             "launches": w5_launches[3], "max_abs_err": float(w0_err[0]),
@@ -1213,7 +1274,7 @@ def main() -> int:
             "source": "brickmap_tpu_torch/csrc/wave.cu",
             "replaces": "brickmap_tpu/render/pathtrace.py:385",
             "launches": w5_launches[4], "max_abs_err": w4_err[0],
-            "ms": w4_ms, "plain_ms": w4_plain_ms, "bound_ms": w4_bound,
+            "ms": w4_ms, "plain_ms": w4_plain_ms, "bound_ms": w4_bms,
             "bound_by": w4_by, "library_ms": None}
 
         # Whole waves through the kernels against the same waves with the

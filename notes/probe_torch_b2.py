@@ -156,8 +156,8 @@ def main() -> int:
     ap.add_argument("--phase5", default="",
                     help="comma list: variants also timed in phase 5's waves")
     ap.add_argument("--parent", default=None,
-                    help="another tree's traverse.cu (a launcher without "
-                         "the count), timed as 'parent'")
+                    help="another tree's traverse.cu (its launcher with or "
+                         "without the count), timed as 'parent'")
     args = ap.parse_args()
 
     import torch
@@ -200,14 +200,21 @@ def main() -> int:
                  ("PROBE_TOP=0", "PROBE_ROW=0", "PROBE_CLOCK=1")))
     libs = nvcc_all(build, jobs)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    old_sig = ("base", "parent")     # launchers without the count argument
+    # Launchers without the count argument: the baseline's, and a parent's
+    # from before B2 read its count on the device (a parent with the count
+    # binds as csrc's does).
+    parent_count = bool(args.parent) and "const int* count" in open(
+        args.parent).read()
+    old_sig = ("base",) + (() if parent_count else ("parent",))
+    if parent_count:
+        ktrav._bind(libs["parent"][0])
     for tag in old_sig:
         if tag in libs:
             libs[tag][0].traverse_launch.argtypes = (
                 [i] + [p] * 8 + [i] * 12 + [f, i] + [p] * 8 + [p])
             libs[tag][0].traverse_launch.restype = i
     for tag, (lib, _) in libs.items():
-        if tag not in old_sig:
+        if tag not in (*old_sig, "parent"):
             lib.variant_launch.argtypes = ([i] + [p] * 9 + [i] * 12 + [f, i]
                                            + [p] * 8 + [p, i, p])
             lib.variant_launch.restype = i
@@ -241,7 +248,7 @@ def main() -> int:
             tilings[key] = block_words(sc.index_volume)
         if tag == "csrc":
             fn, words = lib_csrc.traverse_launch, sc.index_volume
-        elif tag in old_sig:
+        elif tag in (*old_sig, "parent"):
             fn, words = libs[tag][0].traverse_launch, sc.index_volume
         else:
             fn, words = libs[tag][0].variant_launch, tilings[key]
@@ -249,9 +256,9 @@ def main() -> int:
                            device=dev)
         a = ktrav.launch_args(inputs, words, sc, cam, grid, steps, out,
                               stream, n_dev)
-        if tag != "csrc":     # the launchers without the count
-            a = a[:1] + a[2:]
-        if tag not in ("csrc", *old_sig):
+        if tag != "csrc" and not (tag == "parent" and parent_count):
+            a = a[:1] + a[2:]     # the launchers without the count
+        if tag not in ("csrc", "parent", *old_sig):
             a = a[:6] + (sc.index_volume.data_ptr(),) + a[6:-1] + (
                 None if counters is None else counters.data_ptr(), bps,
                 stream)

@@ -6,16 +6,25 @@ bit for bit.
 
 * W0 gives ``torch.nonzero``'s indices, in its order, and their count, on
   masks of 1 to 70,001 rows (a partial tile, warps and blocks around the
-  4,096-row tile, 18 tiles), all-false and all-true, and over the first
-  ``limit`` rows of a mask (the exhausted rays among a trace's compacted
-  ones);
+  4,096-row tile, 18 tiles: more than the shim's resident grid of 4 blocks,
+  so a block takes several tiles and looks back across them), all-false
+  and all-true, and over the first ``limit`` rows of a mask (the exhausted
+  rays among a trace's compacted ones, ``limit`` around a tile's edge);
+  its look-back adds the aggregates that running blocks published (tile
+  statuses set in the scratch as a block of the card may find them: 32 at
+  a time, back to before the first tile, or up to an inclusive status);
+  each launch leaves its scratch zeroed (cursor, exits, statuses), so a
+  launch with ``limit`` 0 after one that set statuses, and two launches
+  back to back on one scratch, give ``torch.nonzero``'s results;
 * W2 and B2 given a count below their capacity write rows below it as a
   launch of exactly that many does, and leave the rows past it as they
   were;
 * W4 on rays made to exhaust (a starved budget on the 128^3 terrain, fully
   resident and with a third of its bricks unloaded) equals the host loop
   of rescue passes (``rescue_plain``) on every key, rays still exhausted
-  after the passes included.
+  after the passes included, with more rays than the shim's resident grid
+  has threads (its warps take 32 rays at a time from the cursor); at a
+  count of 0 it writes nothing, and it leaves its scratch zeroed.
 
 The launchers are driven through the wrappers' own ctypes signatures and
 arguments (:func:`~brickmap_tpu_torch.kernels.wave.compact_args`,
@@ -65,14 +74,31 @@ def libs(tmp_path_factory):
     return wave, trav
 
 
-def host_compact(lib, mask, limit=None):
+# The shim's resident grid: 2 SMs x 2 blocks (csrc/host_shim.h).
+RESIDENT_BLOCKS = 4
+TILE = 4096
+INCLUSIVE, AGGREGATE = 2 << 32, 1 << 32   # csrc/wave.cu's status flags
+
+
+def new_scratch(rows=N * 2):
+    return torch.zeros(kwave.scratch_words(rows), dtype=torch.int64)
+
+
+def host_compact(lib, mask, limit=None, scratch=None):
     m = mask.shape[0]
     out = torch.full((m,), -7, dtype=torch.int32)
     count = torch.full((1,), -7, dtype=torch.int32)
-    parts = torch.empty(kwave.compact_tiles(m), dtype=torch.int32)
+    scratch = new_scratch(m) if scratch is None else scratch
     assert lib.wave_compact_launch(*kwave.compact_args(
-        mask, limit, parts, out, count, None)) == 0
+        mask, limit, out, count, scratch, None)) == 0
+    assert not bool(scratch.any()), "the launch left its scratch dirty"
     return out, count
+
+
+def assert_nonzero(got, count, mask):
+    want = torch.nonzero(mask).squeeze(1).int()
+    assert int(count) == want.shape[0]
+    assert torch.equal(got[:want.shape[0]], want)
 
 
 def masks():
@@ -98,7 +124,8 @@ def test_w0_equals_nonzero(libs, name, mask):
     assert torch.equal(plain[:want.shape[0]], want)
 
 
-@pytest.mark.parametrize("limit", [0, 1, 15, 17, 4096, 40001, 70001])
+@pytest.mark.parametrize("limit", [0, 1, 15, 17, 4095, 4096, 4097, 40001,
+                                   70001])
 def test_w0_over_the_first_rows(libs, limit):
     """``limit``: only the first rows count (W0 over B2's exhausted flags,
     the trace's count of them compacted)."""
@@ -111,6 +138,63 @@ def test_w0_over_the_first_rows(libs, limit):
     plain, plain_count = owave.compact_plain(mask, lim)
     assert torch.equal(plain_count, count)
     assert torch.equal(plain[:want.shape[0]], want)
+
+
+def test_w0_takes_more_tiles_than_its_grid(libs):
+    """18 tiles on the shim's 4 resident blocks: the first block takes the
+    tiles one after another from the cursor and finds each one's offset in
+    the inclusive status of the tile before."""
+    mask = torch.from_numpy(np.random.default_rng(7).random(18 * TILE - 3)
+                            < 0.6)
+    assert kwave.scratch_words(mask.shape[0]) - 2 > RESIDENT_BLOCKS
+    got, count = host_compact(libs[0], mask)
+    assert_nonzero(got, count, mask)
+
+
+@pytest.mark.parametrize("first,inclusive_at", [
+    (40, None),   # 40 aggregates: two windows of 32, then before tile 0
+    (40, 3),      # aggregates back to tile 4, tile 3 inclusive
+    (33, 32),     # the nearest predecessor inclusive
+    (1, None)])   # tile 0 published as an aggregate alone
+def test_w0_looks_back_over_published_aggregates(libs, first,
+                                                 inclusive_at):
+    """A launch whose cursor starts at tile ``first``, the statuses of the
+    tiles before it set as blocks still running on the card leave them
+    (each tile's own count as an aggregate; at ``inclusive_at`` the count
+    with every tile before it): the look-back adds them up, so the tiles
+    from ``first`` on land at their offsets in ``torch.nonzero``'s list,
+    the count is the whole mask's, and the launch zeroes the statuses."""
+    rng = np.random.default_rng(first)
+    mask = torch.from_numpy(rng.random((first + 5) * TILE - 9) < 0.3)
+    per_tile = [int(mask[t * TILE:(t + 1) * TILE].sum())
+                for t in range(first)]
+    scratch = new_scratch(mask.shape[0])
+    scratch[:1] = first                     # the W0 cursor (int32 word 0)
+    for t, c in enumerate(per_tile):
+        scratch[2 + t] = (INCLUSIVE | sum(per_tile[:t + 1])
+                          if t == inclusive_at else AGGREGATE | c)
+    got, count = host_compact(libs[0], mask, scratch=scratch)
+    want = torch.nonzero(mask).squeeze(1).int()
+    skip = sum(per_tile)
+    assert int(count) == want.shape[0]
+    assert torch.equal(got[skip:want.shape[0]], want[skip:])
+    assert bool((got[:skip] == -7).all()), "tiles before the cursor"
+
+
+def test_w0_resets_its_scratch_between_launches(libs):
+    """Launches back to back on one scratch: a full mask, then ``limit``
+    0 (the statuses the first set are zeroed, else the count would be
+    read from them), then two other masks."""
+    scratch = new_scratch(70001)
+    rng = np.random.default_rng(11)
+    first = torch.from_numpy(rng.random(70001) < 0.5)
+    assert_nonzero(*host_compact(libs[0], first, scratch=scratch), first)
+    got, count = host_compact(libs[0], first,
+                              torch.zeros(1, dtype=torch.int32), scratch)
+    assert int(count) == 0
+    for n, p in ((70001, 0.9), (5000, 0.1)):
+        mask = torch.from_numpy(rng.random(n) < p)
+        assert_nonzero(*host_compact(libs[0], mask, scratch=scratch), mask)
 
 
 @pytest.fixture(scope="module")
@@ -238,11 +322,16 @@ def test_w4_equals_the_rescue_passes(libs, scenes, residency, budget,
     res, lanes, count, st = starved_trace(sc, 6)
     rows, n_rows = owave.compact_plain(res["exhausted"], count)
     assert int(n_rows) > 100
+    # More rays than the shim's resident grid has threads: warps take
+    # 32 rays at a time from the cursor until none is left.
+    assert int(n_rows) > RESIDENT_BLOCKS * 128
     got = {k: v.clone() for k, v in res.items()}
     want = {k: v.clone() for k, v in res.items()}
+    scratch = new_scratch()
     assert libs[0].wave_rescue_launch(*kwave.rescue_args(
         got, rows, n_rows, lanes, st["rays_o"], st["rays_d"], sc, CAM,
-        CFG.grid, budget, passes, None)) == 0
+        CFG.grid, budget, passes, scratch, None)) == 0
+    assert not bool(scratch.any()), "W4 left its scratch dirty"
     owave.rescue_plain(want, rows, n_rows, lanes, st["rays_o"], st["rays_d"],
                        sc, CAM, CFG.grid, budget, passes)
     for k in got:
@@ -256,3 +345,20 @@ def test_w4_equals_the_rescue_passes(libs, scenes, residency, budget,
         assert 0 < left < int(n_rows)
     if passes:
         assert not torch.equal(want["hit"], res["hit"])
+
+
+def test_w4_at_a_zero_count(libs, scenes):
+    """W4 launched over a trace's capacity with a count of 0 writes no row
+    and leaves the scratch as it found it (zeroed)."""
+    sc = scenes["resident"]
+    res, lanes, count, st = starved_trace(sc, 6)
+    rows, _ = owave.compact_plain(res["exhausted"], count)
+    got = {k: v.clone() for k, v in res.items()}
+    scratch = new_scratch()
+    assert libs[0].wave_rescue_launch(*kwave.rescue_args(
+        got, rows, torch.zeros(1, dtype=torch.int32), lanes, st["rays_o"],
+        st["rays_d"], sc, CAM, CFG.grid, rescue_budget(CFG), RESCUE_PASSES,
+        scratch, None)) == 0
+    assert not bool(scratch.any())
+    for k in got:
+        assert torch.equal(got[k], res[k]), k
