@@ -30,12 +30,14 @@
 //
 // No host round trip.  The JAX wave picks its compaction bucket with
 // lax.switch and gates its rescue with lax.cond, both on device counts.
-// Here W0 writes the count on the device and W2, B2 and W4 read it there:
-// W2's launch covers the capacity (the wave's 2N rays, or a trace's
-// compacted ones) and a thread past the count returns at once; W0 and W4
-// launch the blocks resident at once, which take their work from a cursor
-// in a scratch buffer the wrapper keeps (zeroed again by each launch, so a
-// launch carries no host state and a graph of the wave could replay it).
+// Here W0 writes the count on the device and W2, B2 and W4 read it there.
+// W0, W2 and W4 launch at most the blocks resident at once, so a small
+// count costs one wave of blocks, not a grid over the capacity (the wave's
+// 2N rays, or a trace's compacted ones): W2's blocks walk its 256-row
+// tiles with a grid-stride loop; W0's and W4's take their work from a
+// cursor in a scratch buffer the wrapper keeps (zeroed again by each
+// launch, so a launch carries no host state and a graph of the wave could
+// replay it).
 // A trace is W0 -> W2 -> B2 -> W0 (exhausted) -> W4 with nothing copied to
 // the host; when nothing is exhausted, W4's blocks all return.  W0 is one
 // pass with a decoupled look-back: 4096-row tiles taken in order, each
@@ -59,7 +61,8 @@
 // bounce's rays into the same [2N] buffers (no concatenation), and on the
 // last pass writes the wave's outputs through the tile permutation.  A
 // lane's loads and stores are 4-byte words at neighbouring addresses across
-// a warp; the ray counters are summed in the block and added with one
+// a warp (W2 stages its [*, 3] outputs and stores them as runs of 16-byte
+// words); the ray counters are summed in the block and added with one
 // 64-bit atomic a block.
 //
 // Rounding.  Built with -fmad=false and no fast math, every operation
@@ -613,9 +616,42 @@ __device__ __forceinline__ Clip clip_ray(const Box& box, const float o[3],
   return c;
 }
 
+// A tile of W2: kGatherTile consecutive rows of the compacted list, a row
+// a thread.  Its [kGatherTile, 3] float outputs are whole 16-byte words
+// (3,072 bytes), so a tile that starts on a 16-byte boundary ends on one.
+constexpr int kGatherTile = 256;
+constexpr int kGatherWords = 3 * kGatherTile;
+// Rows [base, base + rows) of a [*, 3] float output from a tile staged in
+// shared memory: the whole 16-byte words as one contiguous run, then the
+// last 0-2 floats of a partial tile one by one.  No word at or past row
+// base + rows is written.  `out` is 16-byte aligned (the launcher checks).
+__device__ __forceinline__ void store_tile3(float* __restrict__ out,
+                                            const float4* stage, int base,
+                                            int rows) {
+  float* const dst = out + 3 * static_cast<long long>(base);
+  const int words = 3 * rows, quads = words / 4;
+  for (int q = static_cast<int>(threadIdx.x); q < quads; q += kGatherTile) {
+    reinterpret_cast<float4*>(dst)[q] = stage[q];
+  }
+  const int w = 4 * quads + static_cast<int>(threadIdx.x);
+  if (w < words) dst[w] = reinterpret_cast<const float*>(stage)[w];
+}
+
 // The rays at rows lanes[k], k < *count (W0's compaction), clipped to the
-// world box.
-__global__ void __launch_bounds__(kThreads)
+// world box.  A grid of at most the blocks resident at once walks the
+// count's tiles with a grid-stride loop (every row costs the same: no
+// balance to keep); with a count of 0 every block returns at once.  A
+// tile: each thread gathers its ray at lanes[k], clips it, stores tmin
+// and ok (a warp's run of 128 and 32 bytes: whole sectors) and stages its
+// clipped origin, direction and entry normal in shared memory; then the
+// block stores each of the three as one run of 16-byte words.  Loading a
+// tile whose lanes are one run of rows (bounce 0's) as 16-byte words
+// through shared memory was 4-16% slower at bounces 0 and 1 on an H100
+// (notes/probe_torch_w2_variants.cu).  No minimum of blocks an SM in the
+// launch bounds: ptxas gives it 40 registers, 6 blocks an SM (the grid's
+// 792 on an H100); a minimum of 8 caps it at 32 registers with spills,
+// and was 10% slower.
+__global__ void __launch_bounds__(kGatherTile)
 gather_clip_kernel(const int* __restrict__ count,
                    const float* __restrict__ rays_o,
                    const float* __restrict__ rays_d,
@@ -625,22 +661,38 @@ gather_clip_kernel(const int* __restrict__ count,
                    float* __restrict__ entry_normal,
                    float* __restrict__ tminn_out,
                    unsigned char* __restrict__ ok) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= *count) return;
-  const int lane = lanes[k];
-  if (pos != nullptr) pos[lane] = k;
-  const float o[3] = {rays_o[3 * lane], rays_o[3 * lane + 1],
-                      rays_o[3 * lane + 2]};
-  const float d[3] = {rays_d[3 * lane], rays_d[3 * lane + 1],
-                      rays_d[3 * lane + 2]};
-  const Clip c = clip_ray(box, o, d);
-  for (int a = 0; a < 3; ++a) {
-    clipped[3 * k + a] = c.o[a];
-    dirs[3 * k + a] = d[a];
-    entry_normal[3 * k + a] = c.en[a];
+  __shared__ float4 stage[3][kGatherWords / 4];
+  const int n = *count;
+  const int t = static_cast<int>(threadIdx.x);
+  for (int base = static_cast<int>(blockIdx.x) * kGatherTile; base < n;
+       base += static_cast<int>(gridDim.x) * kGatherTile) {
+    const int rows = min(n - base, kGatherTile);
+    if (t < rows) {
+      const int k = base + t;
+      const int lane = lanes[k];
+      if (pos != nullptr) pos[lane] = k;
+      const float o[3] = {rays_o[3 * lane], rays_o[3 * lane + 1],
+                          rays_o[3 * lane + 2]};
+      const float d[3] = {rays_d[3 * lane], rays_d[3 * lane + 1],
+                          rays_d[3 * lane + 2]};
+      const Clip c = clip_ray(box, o, d);
+      float* const s[3] = {reinterpret_cast<float*>(stage[0]),
+                           reinterpret_cast<float*>(stage[1]),
+                           reinterpret_cast<float*>(stage[2])};
+      for (int a = 0; a < 3; ++a) {
+        s[0][3 * t + a] = c.o[a];
+        s[1][3 * t + a] = d[a];
+        s[2][3 * t + a] = c.en[a];
+      }
+      tminn_out[k] = c.tmin;
+      ok[k] = c.ok;
+    }
+    __syncthreads();
+    store_tile3(clipped, stage[0], base, rows);
+    store_tile3(dirs, stage[1], base, rows);
+    store_tile3(entry_normal, stage[2], base, rows);
+    __syncthreads();
   }
-  tminn_out[k] = c.tmin;
-  ok[k] = c.ok;
 }
 
 // ---- W4 -----------------------------------------------------------------
@@ -961,17 +1013,28 @@ extern "C" int wave_compact_launch(int cap, const unsigned char* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
+// W2's grid: its tiles over the capacity, at most the blocks resident at
+// once.  The [*, 3] outputs must be 16-byte aligned (tiles store whole
+// 16-byte words).
 extern "C" int wave_gather_clip_launch(
     int cap, const int* count, const float* rays_o, const float* rays_d,
     const int* lanes, int* pos, float hi_x, float hi_y,
     float hi_z, float center_x, float center_y, float center_z,
     float scale_xy, float eps, float* clipped, float* dirs,
     float* entry_normal, float* tminn, unsigned char* ok, void* stream) {
+  static int resident[64] = {};
   const Box box{{hi_x, hi_y, hi_z}, {center_x, center_y, center_z}, scale_xy,
                 eps};
+  if ((reinterpret_cast<unsigned long long>(clipped) |
+       reinterpret_cast<unsigned long long>(dirs) |
+       reinterpret_cast<unsigned long long>(entry_normal)) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (cap > 0) {
-    gather_clip_kernel<<<(cap + kThreads - 1) / kThreads, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+    const int tiles = (cap + kGatherTile - 1) / kGatherTile;
+    gather_clip_kernel<<<min(tiles, resident_blocks(gather_clip_kernel,
+                                                    kGatherTile, resident)),
+                         kGatherTile, 0, static_cast<cudaStream_t>(stream)>>>(
         count, rays_o, rays_d, lanes, pos, box, clipped, dirs,
         entry_normal, tminn, ok);
   }

@@ -23,8 +23,10 @@ lane, ray or row:
   rays re-traced with the escalated budget, all passes of a ray in one
   thread, their results written back at their rows.
 
-W0 and W4 launch the blocks resident at once, which take tiles (W0) or 32
-rays a warp (W4) from a cursor in :func:`scratch`, a buffer held for each
+W0, W2 and W4 launch at most the blocks resident at once, so a small count
+costs one wave of blocks, not a grid over the capacity.  W2's blocks walk
+its 256-row tiles with a grid-stride loop; W0's and W4's take tiles (W0) or
+32 rays a warp (W4) from a cursor in :func:`scratch`, a buffer held for each
 device and stream; each launch leaves it zeroed, so the launches carry no
 per-call host state.
 
@@ -289,7 +291,10 @@ def gather_clip(rays_o, rays_d, lanes, count, grid: GridConfig,
     entry normals, tmin, ok), B2's inputs, over the capacity of ``lanes``
     (rows past the count are left unwritten).  With ``pos`` (the state's
     [2N] rows), writes each lane's row in ``lanes`` there.  The count is
-    read on the device."""
+    read on the device: one launch of at most the blocks resident at once,
+    which walk the count's 256-row tiles and return at once when it is 0.
+    Each tile's [256, 3] outputs are stored as runs of 16-byte words (the
+    outputs, allocated here, are 16-byte aligned)."""
     dev = rays_o.device
     if dev.type == "cpu":
         return gather_clip_plain(rays_o, rays_d, lanes, count, grid, pos)

@@ -49,8 +49,10 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    alone beside its bound (W1, W0 and W2 at bounces 0 and 1, W0 also over
    trace 0's exhausted rows, with ``torch.nonzero`` beside every W0 shape
    and W0 timed both with its launches queued behind a device sleep and by
-   events around each call; W3 at bounces 0 and 1 and the final pass; W4
-   at a zero count and on each trace's exhausted rays).  W0 and W4 again
+   events around each call; W2 likewise at bounces 0 and 1, the final
+   trace and a count of 0 over the full capacity; W3 at bounces 0 and 1
+   and the final pass; W4 at a zero count and on each trace's exhausted
+   rays).  W0 and W4 again
    where rays exhaust: view 0's primaries traced
    with a starved budget, rescued with the wave's budget (none left) and
    with a starved one (some left), against the plain rescue passes, and
@@ -60,8 +62,9 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    10 and W1 once; no plain version may run.  Last, whole waves through
    W0-W4 against the same waves with their plain versions swapped in
    (view 0, view 7 whose primaries all miss, and view 0 with a starved
-   trace budget): rgb within rtol 1e-4 / atol 1e-5, count, requests,
-   traced and exhausted (0) equal;
+   trace budget): W2 equal to its plain version at each of the wave's 5
+   traces, rgb within rtol 1e-4 / atol 1e-5, count, requests, traced and
+   exhausted (0) equal;
 6. kernels B3 (segment recorder), B4f and B4b (the visited voxels' values
    read from the pool fields, and their cotangents added back with
    atomics) against their plain versions on the phase-4 terrain, resident
@@ -217,6 +220,19 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
         b.record()
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def sm_ghz() -> float:
+    """The SM clock from a device sleep of 10^8 cycles, in GHz (it differs
+    between machines: compare times only within one run)."""
+    import torch
+
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(100_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    return 100_000_000 / a.elapsed_time(b) / 1e6
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -824,6 +840,7 @@ def main() -> int:
         # W0 shape -> (rows, set rows, queued ms, events ms, plain ms,
         # torch.nonzero ms); W4 trace -> (rays, ms, bound ms, by)
         w0rec, w4rec = {}, {}
+        w2_events = {}   # W2 shape -> ms by events around the call
         w4_err = [0.0]
         w0_err = [0.0]
         rescue_args = pathtrace.rescue_budget(cfg), pathtrace.RESCUE_PASSES
@@ -925,14 +942,24 @@ def main() -> int:
             w_equal(f"W2 trace {bounce}", dict(
                 zip(keys, (a[:m] for a in inp)), pos=st["pos"]), dict(
                 zip(keys, (a[:m] for a in inp_p)), pos=ref["pos"]))
-            if bounce <= 1:
+            if bounce <= 1 or final:
+                # Queued behind a device sleep (the device's time a launch,
+                # as a wave pays it); events around the call beside it.
+                def run_w2(n_=count):
+                    kwave.gather_clip(st["rays_o"], st["rays_d"], lanes, n_,
+                                      cfg.grid, pos=st["pos"])
                 wrec[("W2", shape)] = (
-                    alone_ms(kwave.gather_clip, lambda: kwave.gather_clip(
-                        st["rays_o"], st["rays_d"], lanes, count, cfg.grid,
-                        pos=st["pos"]), 5),
+                    benchmark.kernel_alone_ms([run_w2], 50),
                     host_ms(lambda: owave.gather_clip_plain(
                         ref["rays_o"], ref["rays_d"], lanes, count, cfg.grid,
                         pos=ref["pos"])), *w_bound("W2", m))
+                w2_events[shape] = alone_ms(kwave.gather_clip, run_w2, 5)
+                if bounce == 0:
+                    # A count of 0 over the full capacity: one wave of
+                    # blocks that return (its bound reads the count).
+                    zero_n = torch.zeros(1, dtype=torch.int32, device=dev)
+                    w2_zero = (lanes.shape[0], benchmark.kernel_alone_ms(
+                        [lambda: run_w2(zero_n)], 50))
             res = ktrav.trace_clipped(inp, count, world, cam_b, cfg.grid,
                                       budget)
             del inp, inp_p
@@ -1006,6 +1033,13 @@ def main() -> int:
             print(f"  {kind} alone at {shape}: {ms:.4f} ms (plain "
                   f"{pms:.3f} ms), bound {bms:.4f} ms by {by} "
                   f"({100 * bms / ms:.1f}%)", flush=True)
+        for shape, ev_ms in w2_events.items():
+            print(f"  W2 at {shape}: {wrec[('W2', shape)][0]:.4f} ms queued, "
+                  f"{ev_ms:.4f} ms by events around the call", flush=True)
+        print(f"  W2 alone at a zero count over {w2_zero[0]} rows: "
+              f"{w2_zero[1]:.4f} ms queued, bound {bound(4, 0)[0]:.6f} ms; "
+              f"SM clock from a device sleep {sm_ghz():.3f} GHz",
+              flush=True)
         for shape, (rows_, set_, ms, ev_ms, pms, nz_ms) in w0rec.items():
             bms, by = bound(rows_ + 4 * set_, 0)
             print(f"  W0 alone at {shape} ({rows_} rows, {set_} set): "
@@ -1290,14 +1324,50 @@ def main() -> int:
         plains = (owave.compact_plain, owave.primary_plain,
                   owave.gather_clip_plain, owave.shade_plain,
                   owave.rescue_plain)
+        w2_kernel = kwave.gather_clip
+
+        def checked_w2(tag, counts):
+            """W2 held bit for bit against its plain version at each trace
+            of a wave (the B2 inputs below the count and the lanes' rows;
+            NaN equal to NaN); ``counts`` gets each trace's count."""
+            def gather_clip(rays_o, rays_d, lanes, count, grid, pos=None):
+                pos_p = None if pos is None else pos.clone()
+                want = owave.gather_clip_plain(rays_o, rays_d, lanes, count,
+                                               grid, pos_p)
+                got = w2_kernel(rays_o, rays_d, lanes, count, grid, pos)
+                m = int(count)
+                keys = ("clipped", "dirs", "entry_normal", "tminn", "ok")
+                rows = keys if m else ()     # no row to compare at 0
+                maps = ({}, {}) if pos is None else ({"pos": pos},
+                                                      {"pos": pos_p})
+                w_equal(f"W2 {tag} {len(counts)}", dict(
+                    zip(rows, (a[:m] for a in got)), **maps[0]), dict(
+                    zip(rows, (a[:m] for a in want)), **maps[1]))
+                counts.append(m)
+                return got
+            # While it is swapped in, the kernel's wrapper counts its launch
+            # and looks for its event hook here: these comparison launches
+            # are not counted.
+            gather_clip.events, gather_clip.launches = None, 0
+            return gather_clip
+
         for vi, cfg_x, tag in ((0, cfg, "view 0"), (7, cfg, "view 7"),
                                (0, starved, "view 0, starved")):
             cam_x = cams[vi]
             arr_x = camera_arrays_for(cam_x, sun, w, h, dev)
             u = draw_wave_uniforms(w * h, nb, gen, dev)
             r0 = kwave.rescue.launches
-            got = pathtrace.render_wave(world, arr_x, cam_x.brick_position,
-                                        cfg_x, w, h, uniforms=u)
+            w2_checked = []
+            kwave.gather_clip = checked_w2(f"{tag} trace", w2_checked)
+            try:
+                got = pathtrace.render_wave(world, arr_x,
+                                            cam_x.brick_position, cfg_x, w,
+                                            h, uniforms=u)
+            finally:
+                kwave.gather_clip = w2_kernel
+            if len(w2_checked) != traces:
+                fail(f"{tag}: W2 checked at {len(w2_checked)} traces, not "
+                     f"{traces}")
             kernels = [getattr(kwave, k) for k in names]
             for k, f in zip(names, plains):
                 setattr(kwave, k, f)
@@ -1319,6 +1389,8 @@ def main() -> int:
                 fail(f"{tag}: the wave through W0-W4 differs from the plain "
                      f"one: count {torch.equal(got[1], want[1])}, {same}, "
                      f"exhausted {int(got[2]['exhausted_rays'])}")
+            print(f"  {tag}: W2 equal to the plain version at the wave's "
+                  f"{traces} traces ({w2_checked} rays)", flush=True)
             print(f"  {tag}: the wave through W0-W4 against the plain W0-W4 "
                   f"swapped in: rgb max |diff| {err} (equal: "
                   f"{torch.equal(got[0], want[0])}), count, mask, pos, "
