@@ -357,14 +357,18 @@ def hbm_copies(nbytes: int, device) -> int:
     return 2 * l2 // max(nbytes, 1) + 1
 
 
-def kernel_alone_ms(runs: list, reps: int = 50) -> float:
+def kernel_alone_ms(runs: list, reps: int = 50, before=None) -> float:
     """Mean ms of one launch over ``reps`` launches queued behind a device
     sleep, by CUDA events around the launches; after one warm-up launch of
     each.  ``runs``: callables that each launch the kernel (nothing else on
     the stream) on one copy of the same inputs, taken in turn (see
-    :func:`hbm_copies`).  The sleep is doubled until the host has enqueued
-    every launch before it ends."""
+    :func:`hbm_copies`).  ``before``, when given, is enqueued ahead of each
+    launch (restoring the inputs a kernel rewrites) and left out of the
+    time: each launch then has its own pair of events.  The sleep is
+    doubled until the host has enqueued every launch before it ends."""
     for run in runs:
+        if before is not None:
+            before()
         run()
     torch.cuda.synchronize()
     cycles = SLEEP_CYCLES
@@ -373,13 +377,24 @@ def kernel_alone_ms(runs: list, reps: int = 50) -> float:
         e0.record()
         torch.cuda._sleep(cycles)
         a.record()
+        pairs = []
         t0 = time.perf_counter()
         for k in range(reps):
+            if before is None:
+                runs[k % len(runs)]()
+                continue
+            before()
+            pairs.append(tuple(torch.cuda.Event(enable_timing=True)
+                               for _ in range(2)))
+            pairs[-1][0].record()
             runs[k % len(runs)]()
+            pairs[-1][1].record()
         host_ms = (time.perf_counter() - t0) * 1e3
         b.record()
         torch.cuda.synchronize()
         if host_ms < 0.8 * e0.elapsed_time(a):
+            if pairs:
+                return sum(p.elapsed_time(q) for p, q in pairs) / reps
             return a.elapsed_time(b) / reps
         cycles *= 2
     raise RuntimeError("the host could not enqueue the launches within the "

@@ -46,6 +46,17 @@
 // scene pointers are separate __restrict__ arguments: nvcc drops the
 // qualifier on a struct member.
 //
+// Measured on the card and not shipped (notes/probe_torch_b2.py): descends
+// postponed until several lanes of a warp hold one
+// (notes/probe_torch_b2_postpone.cu; a descend step already runs ~15 of
+// 32 lanes at view 0's primaries, as the warp merges lanes that enter the
+// sub-DDA loop later), a grid of at most the resident blocks fetching rays
+// from a cursor (notes/probe_torch_b2_grid.cu: 56 registers and a stack
+// frame), 256 or 384 threads a block (the probe's copies of this file with
+// kThreads changed), and the skip without its divisions
+// (notes/probe_torch_b2_skip_dda.cuh).  Each was slower at the primaries,
+// except a product that rounds differently from the division.
+//
 // The walk itself is traverse_walk.inc, included here and in the wave's
 // rescue kernel W4 (wave.cu), which re-traces exhausted rays with the
 // escalated budget.  The ray count is read on the device (`count`): the

@@ -170,6 +170,13 @@ DDA_STEP_OPS = 12
 FULL_WORLD_BRICKS = 8_663_747  # non-empty bricks of the 4096^2 x 512 world
 L2_FLUSH_BYTES = 256 << 20     # written between timed launches: 5x the L2
 STARVED_STEPS = 16             # a trace budget that leaves rays exhausted
+# B2's instructions a step in its SASS (notes/probe_torch_b2.py
+# --sass-dir): ~155 on a top step through the empty-space skip (its three
+# IEEE divisions ~20 each), the LoD-byte sub-DDA loop 44 (the brick's 49);
+# and the H100 SXM's warp schedulers (132 SMs x 4), a warp instruction a
+# cycle each.
+B2_TOP_STEP_INSTR, B2_DESCEND_STEP_INSTR = 155, 44
+ISSUE_SLOTS = 132 * 4
 
 
 def fail(msg: str) -> None:
@@ -239,6 +246,30 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def b2_bound(plain: dict) -> tuple[float, str]:
+    """B2's least time on the rays of its plain version's result
+    ``plain``: per ray in, origin, direction, entry normal (36 B), tmin (4),
+    ok (1); out, hit, request, exhausted (3), t, resume (8), normal (12),
+    request_pos (12), steps (4); then each distinct index word (4 B) and
+    brick row (64 B) the rays read, once; DDA_STEP_OPS a step."""
+    nbytes = plain["hit"].shape[0] * (41 + 39) \
+        + 4 * int(plain["cells_read"].sum()) \
+        + 64 * int(plain["rows_read"].sum())
+    return bound(nbytes, int(plain["ray_iters"].sum()) * DDA_STEP_OPS)
+
+
+def b2_issue_ms(plain: dict, ghz: float) -> float:
+    """B2's steps issued with every lane of each warp busy: top steps
+    (index-word reads) at B2_TOP_STEP_INSTR, descend steps at
+    B2_DESCEND_STEP_INSTR instructions, over the warp schedulers at the SM
+    clock ``ghz``.  An estimate of the issue's share, not a bound: steps
+    without a skip are shorter, the brick's sub-DDA step longer."""
+    top = int(plain["ray_words"].sum())
+    descend = int(plain["ray_iters"].sum()) - top
+    instr = (top * B2_TOP_STEP_INSTR + descend * B2_DESCEND_STEP_INSTR) / 32
+    return instr / (ISSUE_SLOTS * ghz * 1e9) * 1e3
 
 
 def in_solid(scene, grid, position) -> bool:
@@ -434,7 +465,8 @@ def main() -> int:
     from brickmap_tpu_torch.kernels import brick as kbrick, build
     from brickmap_tpu_torch.kernels import traverse as ktrav, wave as kwave
     from brickmap_tpu_torch.ops import wave as owave
-    from brickmap_tpu_torch.ops.traverse import trace_rays
+    from brickmap_tpu_torch.ops.traverse import trace_clipped_rays, \
+        trace_rays
     from brickmap_tpu_torch.render import pathtrace
     from brickmap_tpu_torch.render.camera import Camera, \
         camera_arrays_for, primary_rays_from_arrays
@@ -768,20 +800,49 @@ def main() -> int:
         words_read = int(want["ray_words"].sum())
         bricks_read = int(want["ray_bricks"].sum())
         steps = int(want["ray_iters"].sum())
-        # Per ray in: origin, direction, entry normal (36 B), tmin (4), ok
-        # (1); out: hit, request, exhausted (3), t, resume (8), normal (12),
-        # request_pos (12), steps (4).  Then each distinct index word (4 B)
-        # and brick row (64 B) the rays read, once.
         ray_bytes = nray * (41 + 39)
         b2_bytes = ray_bytes + 4 * cells + 64 * rows
         requested = ray_bytes + 4 * words_read + 64 * bricks_read
-        b2_bound, b2_by = bound(b2_bytes, steps * DDA_STEP_OPS)
-        print(f"  B2 at {nray} rays: {b2_ms:.4f} ms per launch (kernel "
-              f"alone; plain {b2_plain_ms:.1f} ms); distinct reads {cells} "
-              f"index words + {rows} brick rows -> {b2_bytes} bytes; "
-              f"{steps} DDA steps -> bound {b2_bound:.4f} ms by {b2_by}; "
-              f"bytes requested {requested} ({words_read} index-word and "
-              f"{bricks_read} brick-row reads)", flush=True)
+        b2_bound_ms, b2_by = b2_bound(want)
+        print(f"  B2 at {nray} rays: {b2_ms:.4f} ms per launch (events "
+              f"around the launch; plain {b2_plain_ms:.1f} ms); distinct "
+              f"reads {cells} index words + {rows} brick rows -> {b2_bytes} "
+              f"bytes; {steps} DDA steps -> bound {b2_bound_ms:.4f} ms by "
+              f"{b2_by}; bytes requested {requested} ({words_read} "
+              f"index-word and {bricks_read} brick-row reads)", flush=True)
+        # B2 alone, its launches queued behind a device sleep (the device's
+        # time a launch, as a wave pays it), at the main path's shapes:
+        # these primaries, then (below) the wave's bounce-1 and shadow
+        # traces and a count of 0 over its capacity, and phase 8's cold
+        # streaming primaries; beside the bytes bound and the issue
+        # estimate at the SM clock.
+        ghz5 = sm_ghz()
+        b2q = {}    # shape -> (rays, queued ms, bound ms, by, issue ms)
+
+        def time_b2(shape, inputs, count, plain, sc=None):
+            sc = world if sc is None else sc
+            ms = benchmark.kernel_alone_ms([lambda: ktrav.trace_clipped(
+                inputs, count, sc, cam0.brick_position, cfg.grid,
+                budget)], 20)
+            if plain is None:    # a count of 0: the count's 4 bytes
+                b2q[shape] = (0, ms, *bound(4, 0), 0.0)
+            else:
+                b2q[shape] = (int(count), ms, *b2_bound(plain),
+                              b2_issue_ms(plain, ghz5))
+
+        def print_b2(shape):
+            m, ms, bms, by, iss = b2q[shape]
+            print(f"  B2 alone at {shape} ({m} rays): {ms:.4f} ms queued, "
+                  f"bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f}%), "
+                  f"issue at full lanes {iss:.4f} ms "
+                  f"({100 * iss / ms:.1f}%; SM clock {ghz5:.3f} GHz)",
+                  flush=True)
+
+        inputs0, _ = ktrav.launch_inputs(o0, d0, cfg.grid)
+        time_b2("view 0 primaries", inputs0,
+                torch.full((1,), nray, dtype=torch.int32, device=dev), want)
+        print_b2("view 0 primaries")
+        del inputs0
         print(f"  B2 schedule at {nray} rays: SIMD efficiency in launch "
               f"order {benchmark.launch_order_simd(want['ray_iters']):.4f}"
               f"; {benchmark.B2_BLOCKS_PER_SM} blocks of 128 an SM on {sms} "
@@ -799,6 +860,7 @@ def main() -> int:
         st, ref = owave.new_state(n, dev), owave.new_state(n, dev)
         w_err = [0.0]
         wrec = {}      # (kernel, shape) -> (ms, plain ms, bound ms, by)
+        w_events = {}  # (W1 or W3, shape) -> ms by events around the call
 
         def w_equal(tag, got, want):
             for k in want:
@@ -830,10 +892,12 @@ def main() -> int:
         torch.cuda.synchronize()
         w_equal("W1", st, ref)
         wrec[("W1", "view 0")] = (
-            alone_ms(kwave.primary, lambda: kwave.primary(
-                perm5, u5, arrays, w, h, st), 5),
+            benchmark.kernel_alone_ms([lambda: kwave.primary(
+                perm5, u5, arrays, w, h, st)], 20),
             host_ms(lambda: owave.primary_plain(perm5, u5, arrays, w, h,
                                                 ref)), *w_bound("W1", n))
+        w_events[("W1", "view 0")] = alone_ms(kwave.primary, lambda: (
+            kwave.primary(perm5, u5, arrays, w, h, st)), 5)
         print(f"  W1 at {n} lanes: state equal to the plain version's "
               f"(rays, live, map, accum, requests, counters)", flush=True)
         flips = 0
@@ -960,6 +1024,14 @@ def main() -> int:
                     zero_n = torch.zeros(1, dtype=torch.int32, device=dev)
                     w2_zero = (lanes.shape[0], benchmark.kernel_alone_ms(
                         [lambda: run_w2(zero_n)], 50))
+                    time_b2(f"a count of 0 over {lanes.shape[0]} rows", inp,
+                            zero_n, None)
+                else:
+                    time_b2(shape if bounce == 1 else "the shadow trace",
+                            inp, count, trace_clipped_rays(
+                                *(a[:m] for a in inp), world.index_volume,
+                                world.pool_words, world.pool_base, cam_b,
+                                cfg.grid, max_iters=budget))
             res = ktrav.trace_clipped(inp, count, world, cam_b, cfg.grid,
                                       budget)
             del inp, inp_p
@@ -1022,9 +1094,14 @@ def main() -> int:
                     restore()
                     owave.shade_plain(bounce, tmp, res, cone, hemi, sun, cfg,
                                       final, dst)
+                # Queued behind a device sleep, the restoring copies
+                # outside the events; events around the call beside it.
                 wrec[("W3", shape)] = (
-                    alone_ms(kwave.shade, run_w3, 5), host_ms(run_plain),
+                    benchmark.kernel_alone_ms([lambda: kwave.shade(
+                        bounce, tmp, res, cone, hemi, sun, cfg, final, dst)],
+                        10, restore), host_ms(run_plain),
                     *w_bound("W3" if not final else "W3f", n, m))
+                w_events[("W3", shape)] = alone_ms(kwave.shade, run_w3, 5)
                 del tmp, saved
             del res, out, out_p
         if flips:
@@ -1036,6 +1113,13 @@ def main() -> int:
         for shape, ev_ms in w2_events.items():
             print(f"  W2 at {shape}: {wrec[('W2', shape)][0]:.4f} ms queued, "
                   f"{ev_ms:.4f} ms by events around the call", flush=True)
+        for (kind, shape), ev_ms in w_events.items():
+            print(f"  {kind} at {shape}: {wrec[(kind, shape)][0]:.4f} ms "
+                  f"queued, {ev_ms:.4f} ms by events around the call",
+                  flush=True)
+        for shape in b2q:
+            if shape != "view 0 primaries":
+                print_b2(shape)
         print(f"  W2 alone at a zero count over {w2_zero[0]} rows: "
               f"{w2_zero[1]:.4f} ms queued, bound {bound(4, 0)[0]:.6f} ms; "
               f"SM clock from a device sleep {sm_ghz():.3f} GHz",
@@ -1269,9 +1353,9 @@ def main() -> int:
             "name": "traverse (B2)", "route": "cuda",
             "source": "brickmap_tpu_torch/csrc/traverse.cu",
             "replaces": "brickmap_tpu/pallas/traverse3.py:143",
-            "launches": b2_launches, "max_abs_err": b2_err[0], "ms": b2_ms,
-            "plain_ms": b2_plain_ms, "bound_ms": b2_bound, "bound_by": b2_by,
-            "library_ms": None}
+            "launches": b2_launches, "max_abs_err": b2_err[0],
+            "ms": b2q["view 0 primaries"][1], "plain_ms": b2_plain_ms,
+            "bound_ms": b2_bound_ms, "bound_by": b2_by, "library_ms": None}
         # W0-W4 have no Pallas twin: "replaces" names the JAX function XLA
         # fuses; each at its first shape of view 0's wave.
         for kind, name, shape, replaces, launches in (
@@ -2049,7 +2133,12 @@ def main() -> int:
         torch.cuda.synchronize()
         check_b2("cold full world (wave 0 primaries)", got, want, b2_err)
         records["B2"]["max_abs_err"] = b2_err[0]
-        del cold, csc, got, want, o8, d8, u
+        inputs8, _ = ktrav.launch_inputs(o8, d8, cfg.grid)
+        time_b2("the cold streaming primaries", inputs8,
+                torch.full((1,), o8.shape[0], dtype=torch.int32, device=dev),
+                want, csc)
+        print_b2("the cold streaming primaries")
+        del cold, csc, got, want, o8, d8, u, inputs8
 
         plain_calls = {"B2": 0, "W0": 0, "W1": 0, "W2": 0, "W3": 0,
                        "W4": 0}
