@@ -17,6 +17,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 __all__ = ["InverseRenderer", "make_adam", "adam_step", "adam_state_arrays",
            "load_adam_state"]
 
@@ -30,13 +32,14 @@ def make_adam(params, learning_rate: float) -> torch.optim.Adam:
 def adam_step(opt: torch.optim.Adam, params, grads) -> None:
     """One Adam update of ``params`` by ``grads``, then clip to [0, 1] (the
     inverse loop of the JAX package: optax update, apply, clip)."""
-    for p, g in zip(params, grads):
-        p.grad = g
-    opt.step()
-    with torch.no_grad():
-        for p in params:
-            p.clamp_(0.0, 1.0)
-            p.grad = None
+    with annotate("bm.optim.adam_step"):
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        with torch.no_grad(), annotate("bm.optim.clip"):
+            for p in params:
+                p.clamp_(0.0, 1.0)
+                p.grad = None
 
 
 def adam_state_arrays(opt: torch.optim.Adam, params) -> list[np.ndarray]:

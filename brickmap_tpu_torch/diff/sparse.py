@@ -45,6 +45,7 @@ from ..kernels.record import record_segments
 from ..kernels.replay import composite_sse, segment_geom
 from ..ops.replay import ray_sse_plain
 from ..ops.replay import segment_visits as _segment_geom
+from ..utils.profiling import annotate
 
 __all__ = ["cell_pool_map", "pool_fields_from_bitmask", "composite_sparse",
            "l2_loss_and_grads_sparse"]
@@ -295,20 +296,24 @@ def _row_scan_grads(o_cells, direction, cells, nd, ncode, enorm, cellmap,
     thresholds = [0] + keffs[:-1]
     counts = (cells >= 0).sum(dim=1)
     per_slice = F.pad(counts, (0, (-n) % chunk)).reshape(-1, chunk)
-    maxima = per_slice.amax(dim=1).tolist()
+    maxima = per_slice.amax(dim=1)
+    with annotate("bm.sync.tier_read"):
+        maxima = maxima.tolist()
     sses = []
-    dfield = torch.zeros_like(field4)
-    for i, mx in enumerate(maxima):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        tier = sum(mx > t for t in thresholds)
-        if tier == 0:
-            sses.append(ray_sse_plain(background[sl], target[sl]))
-            continue
-        keff = keffs[tier - 1]
-        sses.append(_row_chunk_grad(
-            o_cells[sl], direction[sl], cells[sl, :keff], nd[sl, :keff],
-            ncode[sl, :keff], enorm[sl], cellmap, dfield, field4,
-            background[sl], target[sl], grid))
+    with annotate("bm.sparse.zero_grad"):
+        dfield = torch.zeros_like(field4)
+    with annotate("bm.sparse.slices"):
+        for i, mx in enumerate(maxima):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            tier = sum(mx > t for t in thresholds)
+            if tier == 0:
+                sses.append(ray_sse_plain(background[sl], target[sl]))
+                continue
+            keff = keffs[tier - 1]
+            sses.append(_row_chunk_grad(
+                o_cells[sl], direction[sl], cells[sl, :keff], nd[sl, :keff],
+                ncode[sl, :keff], enorm[sl], cellmap, dfield, field4,
+                background[sl], target[sl], grid))
     return torch.sum(torch.cat(sses)), dfield
 
 
@@ -387,55 +392,60 @@ def l2_loss_and_grads_sparse(origin, direction, scene, cellmap, occupancy,
     ``min(host_chunk, 16384)`` rays; ``row_replay=False`` replays per visited
     voxel, in ``host_chunk``-ray slices (the parity oracle).
     """
-    n = origin.shape[0]
-    pshape = occupancy.shape
-    cache_key = (id(origin), id(direction), id(background), id(target))
-    key_arrays = (origin, direction, background, target)
-    use_cache = (row_replay and seg_cache is not None and "geo" in seg_cache
-                 and seg_cache.get("key") == cache_key)
-    if not use_cache:
-        # Page-coherence sort (loss and grads are order-invariant).
-        origin, direction, background, target = _page_sort(
-            origin, direction, background, target, grid)
-        segs = record_segments(origin, direction, scene, grid,
-                               k_segments=k_segments)
+    with annotate("bm.sparse.step"):
+        n = origin.shape[0]
+        pshape = occupancy.shape
+        cache_key = (id(origin), id(direction), id(background), id(target))
+        key_arrays = (origin, direction, background, target)
+        use_cache = (row_replay and seg_cache is not None
+                     and "geo" in seg_cache
+                     and seg_cache.get("key") == cache_key)
+        if not use_cache:
+            # Page-coherence sort (loss and grads are order-invariant).
+            origin, direction, background, target = _page_sort(
+                origin, direction, background, target, grid)
+            segs = record_segments(origin, direction, scene, grid,
+                                   k_segments=k_segments)
 
-    field = _pack_field(occupancy, albedo)
-    if row_replay:
-        if use_cache:
-            geo, n_live = seg_cache["geo"], seg_cache["n_live"]
-        else:
-            # Segment-less rays group at the tail; stable, so page
-            # coherence survives within each group.
-            geo, n_live = _count_sort(
-                segs["cells"], segs["o_cells"], direction, segs["nd"],
-                segs["ncode"], segs["entry_normal"], background, target)
-            n_live = int(n_live)
-        chunkv = min(host_chunk, 16384, -(-n // 1024) * 1024)
-        if seg_cache is not None:
-            seg_cache["geo"], seg_cache["n_live"] = geo, n_live
-            seg_cache["key"] = cache_key
-            seg_cache["key_arrays"] = key_arrays
-        if n_live == 0:
-            # All-miss frame: the sky SSE covers every ray.
-            return _finalize(_sky_sse(geo[6], geo[7], 0),
-                             torch.zeros_like(field), denom=n * 3,
-                             pshape=pshape)
-        sse_sky = _sky_sse(geo[6], geo[7], n_live)
-        sse, dfield = _row_scan_grads(
-            geo[0][:n_live], geo[1][:n_live], geo[2][:n_live],
-            geo[3][:n_live], geo[4][:n_live], geo[5][:n_live], cellmap,
-            field, geo[6][:n_live], geo[7][:n_live], grid, k_segments,
-            chunk=chunkv)
-        return _finalize(sse + sse_sky, dfield, denom=n * 3, pshape=pshape)
+        with annotate("bm.sparse.pack_field"):
+            field = _pack_field(occupancy, albedo)
+        if row_replay:
+            if use_cache:
+                geo, n_live = seg_cache["geo"], seg_cache["n_live"]
+            else:
+                # Segment-less rays group at the tail; stable, so page
+                # coherence survives within each group.
+                geo, n_live = _count_sort(
+                    segs["cells"], segs["o_cells"], direction, segs["nd"],
+                    segs["ncode"], segs["entry_normal"], background, target)
+                n_live = int(n_live)
+            chunkv = min(host_chunk, 16384, -(-n // 1024) * 1024)
+            if seg_cache is not None:
+                seg_cache["geo"], seg_cache["n_live"] = geo, n_live
+                seg_cache["key"] = cache_key
+                seg_cache["key_arrays"] = key_arrays
+            if n_live == 0:
+                # All-miss frame: the sky SSE covers every ray.
+                return _finalize(_sky_sse(geo[6], geo[7], 0),
+                                 torch.zeros_like(field), denom=n * 3,
+                                 pshape=pshape)
+            sse_sky = _sky_sse(geo[6], geo[7], n_live)
+            sse, dfield = _row_scan_grads(
+                geo[0][:n_live], geo[1][:n_live], geo[2][:n_live],
+                geo[3][:n_live], geo[4][:n_live], geo[5][:n_live], cellmap,
+                field, geo[6][:n_live], geo[7][:n_live], grid, k_segments,
+                chunk=chunkv)
+            with annotate("bm.sparse.finalize"):
+                return _finalize(sse + sse_sky, dfield, denom=n * 3,
+                                 pshape=pshape)
 
-    sse = torch.zeros((), dtype=_F32, device=field.device)
-    dfield = torch.zeros_like(field)
-    for start in range(0, n, host_chunk):
-        sl = slice(start, start + host_chunk)
-        sse, dfield = _chunk_grad_body(
-            segs["o_cells"][sl], direction[sl], segs["cells"][sl],
-            segs["nd"][sl], segs["ncode"][sl], segs["entry_normal"][sl],
-            cellmap, sse, dfield, field, background[sl], target[sl], grid,
-            k_segments)
-    return _finalize(sse, dfield, denom=n * 3, pshape=pshape)
+        sse = torch.zeros((), dtype=_F32, device=field.device)
+        dfield = torch.zeros_like(field)
+        for start in range(0, n, host_chunk):
+            sl = slice(start, start + host_chunk)
+            sse, dfield = _chunk_grad_body(
+                segs["o_cells"][sl], direction[sl], segs["cells"][sl],
+                segs["nd"][sl], segs["ncode"][sl], segs["entry_normal"][sl],
+                cellmap, sse, dfield, field, background[sl], target[sl],
+                grid, k_segments)
+        return _finalize(sse, dfield, denom=n * 3, pshape=pshape)

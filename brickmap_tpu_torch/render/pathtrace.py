@@ -40,6 +40,7 @@ from ..config import BrickmapConfig
 from ..kernels import traverse as ktrav, wave as kwave
 from ..ops.wave import new_state
 from ..stream import pull_requests
+from ..utils.profiling import annotate, count as keep_count
 from .sampling import draw_wave_uniforms
 
 __all__ = ["render_wave", "wave_for_indices", "render_frame", "film_init",
@@ -82,8 +83,10 @@ def _trace_live(st: dict, scene, cam_brick, cfg: BrickmapConfig) -> dict:
     B2, compact the exhausted ones (W0) and rescue those in place (W4: up
     to RESCUE_PASSES passes with the escalated budget; rays still exhausted
     after them keep the flag and are counted by the wave).  Returns B2's
-    results over the compacted rays (rows past the count unwritten)."""
+    results over the compacted rays (rows past the count unwritten).  While
+    a profiler records, W0's count is kept as ``wave.trace_rays``."""
     lanes, count = kwave.compact(st["live"])
+    keep_count("wave.trace_rays", count)
     inputs = kwave.gather_clip(st["rays_o"], st["rays_d"], lanes, count,
                                cfg.grid, pos=st["pos"])
     res = ktrav.trace_clipped(inputs, count, scene, cam_brick, cfg.grid,
@@ -132,21 +135,29 @@ def _check_uniforms(uniforms: dict) -> None:
 
 def _wave(scene, idx, camera_arrays: dict, cam_brick, cfg: BrickmapConfig,
           width: int, height: int, generator, uniforms, dst=None):
-    if uniforms is None:
-        uniforms = draw_wave_uniforms(idx.shape[0], cfg.render.max_bounces,
-                                      generator, scene.device)
-    else:
-        _check_uniforms(uniforms)
-    sun_dir = camera_arrays["sun_direction"]
-    st = new_state(idx.shape[0], scene.device)
-    kwave.primary(idx, uniforms, camera_arrays, width, height, st)
-    for bounce in range(cfg.render.max_bounces + 1):
-        res = _trace_live(st, scene, cam_brick, cfg)
-        kwave.shade(bounce, st, res, uniforms["cone"][bounce],
-                    uniforms["hemi"][bounce], sun_dir, cfg)
-    res = _trace_live(st, scene, cam_brick, cfg)
-    return kwave.shade(cfg.render.max_bounces + 1, st, res, None, None,
-                       sun_dir, cfg, final=True, dst=dst)
+    with annotate("bm.wave"):
+        with annotate("bm.wave.uniforms"):
+            if uniforms is None:
+                uniforms = draw_wave_uniforms(
+                    idx.shape[0], cfg.render.max_bounces, generator,
+                    scene.device)
+            else:
+                _check_uniforms(uniforms)
+        sun_dir = camera_arrays["sun_direction"]
+        with annotate("bm.wave.primary"):
+            st = new_state(idx.shape[0], scene.device)
+            kwave.primary(idx, uniforms, camera_arrays, width, height, st)
+        for bounce in range(cfg.render.max_bounces + 1):
+            with annotate("bm.wave.trace"):
+                res = _trace_live(st, scene, cam_brick, cfg)
+            with annotate("bm.wave.shade"):
+                kwave.shade(bounce, st, res, uniforms["cone"][bounce],
+                            uniforms["hemi"][bounce], sun_dir, cfg)
+        with annotate("bm.wave.trace"):
+            res = _trace_live(st, scene, cam_brick, cfg)
+        with annotate("bm.wave.shade"):
+            return kwave.shade(cfg.render.max_bounces + 1, st, res, None,
+                               None, sun_dir, cfg, final=True, dst=dst)
 
 
 def wave_for_indices(scene, idx, camera_arrays: dict, cam_brick,

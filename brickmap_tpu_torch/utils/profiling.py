@@ -6,7 +6,21 @@ is an ImGui frame-time panel plus coarse ``std::cout`` phase timing; here a
 hand-written ones by their ``__global__`` names, e.g. ``traverse_kernel``)
 into a Chrome-trace JSON file that TensorBoard's profiler plugin and
 Perfetto (ui.perfetto.dev) open.  :func:`annotate` names a host region in
-that trace.  The JSONL metrics (``utils/metrics.py``) keep the wall clock.
+that trace and :func:`count` keeps a number beside it; both record only while
+a torch profiler records (a :func:`trace`, or any ``torch.profiler.profile``
+in its active steps) and otherwise cost one check of the profiler's state.
+The JSONL metrics (``utils/metrics.py``) keep the wall clock.
+
+The program's spans are named ``bm.<layer>[.<phase>]`` and nest as the calls
+do: ``bm.wave`` (``.uniforms``, ``.primary``, a ``.trace`` and a ``.shade`` a
+bounce and one more of each for the final shadow trace), ``bm.sparse.step``
+(``.pack_field``, ``.zero_grad``, ``.slices``, ``.finalize``),
+``bm.optim.adam_step`` (``bm.optim.clip``), ``bm.stream.plan`` and
+``bm.stream.install``; ``bm.sync.<site>`` marks a host read of a device value
+(``bm.sync.tier_read``, the cached step's one read, and
+``bm.sync.pull_requests``), so that a device-idle gap under it is the host
+waiting.  The ranges sit on the profiler's clock, the one its device
+activities carry.
 """
 
 from __future__ import annotations
@@ -14,7 +28,14 @@ from __future__ import annotations
 import contextlib
 import os
 
-__all__ = ["trace", "annotate"]
+import torch
+
+__all__ = ["trace", "annotate", "count", "take_counts"]
+
+_recording = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+# name -> values kept by count() while a profiler recorded, until take_counts.
+_counts: dict[str, list] = {}
 
 
 @contextlib.contextmanager
@@ -26,12 +47,12 @@ def trace(logdir: str | None, device="cuda"):
     ``logdir`` (``torch.profiler.tensorboard_trace_handler``); view it with
     ``tensorboard --logdir <dir>`` or open it in Perfetto.  Yields the
     profiler (``None`` when disabled), whose ``key_averages()`` sum the
-    recorded ops by name.
+    recorded ops by name.  What :func:`count` kept during it and no
+    :func:`take_counts` took is dropped when it ends.
     """
     if not logdir:
         yield None
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile, \
         tensorboard_trace_handler
 
@@ -39,15 +60,36 @@ def trace(logdir: str | None, device="cuda"):
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
-        yield prof
+    try:
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+            yield prof
+    finally:
+        _counts.clear()
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """Named host-side region (a ``record_function`` span in the trace)."""
-    import torch
+    """Named host-side region: a ``record_function`` range in the trace while
+    a torch profiler records, else one shared null context (no range, no new
+    object)."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(name)
 
-    with torch.profiler.record_function(name):
-        yield
+
+def count(name: str, value) -> None:
+    """Keep ``value`` (a host int, or an int tensor the caller already holds,
+    possibly on the device) under ``name`` while a torch profiler records;
+    else do nothing.  Never copies, synchronises or launches: a device value
+    is read by :func:`take_counts`."""
+    if _recording():
+        _counts.setdefault(name, []).append(value)
+
+
+def take_counts() -> dict:
+    """``{name: [int, ...]}`` of the values :func:`count` kept, in the order
+    kept, and forget them.  Reads each kept device value (a synchronising
+    copy): call it after the profiled work."""
+    out = {k: [int(v) for v in vs] for k, vs in _counts.items()}
+    _counts.clear()
+    return out
