@@ -122,6 +122,15 @@ template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
+// The streaming (evict-first) load and store are a plain read and write.
+template <class T>
+inline T __ldcs(const T* p) {
+  return *p;
+}
+template <class T>
+inline void __stcs(T* p, T v) {
+  *p = v;
+}
 
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline int __popc(unsigned int v) { return __builtin_popcount(v); }

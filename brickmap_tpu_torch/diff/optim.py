@@ -2,8 +2,11 @@
 images.
 
 The port of ``brickmap_tpu/diff/optim.py``: Adam with optax's defaults
-(beta 0.9 / 0.999, eps 1e-8) as :class:`torch.optim.Adam`, each step
-followed by a clip of the fields to [0, 1].  Checkpoints keep the JAX
+(beta 0.9 / 0.999, eps 1e-8) and the clip of the fields to [0, 1] after
+each update, as :class:`ClippedAdam`, whose step is kernel A1
+(``kernels/adam.py``): one pass a field on the card, the plain torch
+version on the CPU.  Its state is ``torch.optim.Adam``'s (``step``,
+``exp_avg``, ``exp_avg_sq`` a parameter).  Checkpoints keep the JAX
 package's ``.npz`` layout (``step``, ``occupancy``, ``albedo`` and the optax
 state's leaves as ``opt_i`` in ``jax.tree_util.tree_flatten`` order:
 count, mu of each field, nu of each field), so a JAX checkpoint resumes here
@@ -17,32 +20,63 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..kernels.adam import adam_update
 from ..utils.profiling import annotate
 
-__all__ = ["InverseRenderer", "make_adam", "adam_step", "adam_state_arrays",
-           "load_adam_state"]
+__all__ = ["InverseRenderer", "ClippedAdam", "make_adam", "adam_step",
+           "adam_state_arrays", "load_adam_state"]
 
 
-def make_adam(params, learning_rate: float) -> torch.optim.Adam:
-    """Adam with optax's defaults over ``params`` (plain tensors)."""
-    return torch.optim.Adam(list(params), lr=learning_rate,
-                            betas=(0.9, 0.999), eps=1e-8)
+class ClippedAdam(torch.optim.Optimizer):
+    """Adam (``torch.optim.Adam``'s arithmetic, no weight decay) whose
+    update clips each parameter to [0, 1], one call of
+    :func:`~brickmap_tpu_torch.kernels.adam.adam_update` a parameter.  The
+    moments are made as zeros at a parameter's first step; ``step`` is a
+    float32 tensor on the host, as ``torch.optim.Adam`` keeps it."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, {"lr": lr, "betas": tuple(betas),
+                                  "eps": eps})
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0, dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                st["step"] += 1
+                adam_update(p, p.grad, st["exp_avg"], st["exp_avg_sq"],
+                            int(st["step"]), group["lr"], group["betas"],
+                            group["eps"])
 
 
-def adam_step(opt: torch.optim.Adam, params, grads) -> None:
-    """One Adam update of ``params`` by ``grads``, then clip to [0, 1] (the
-    inverse loop of the JAX package: optax update, apply, clip)."""
+def make_adam(params, learning_rate: float) -> ClippedAdam:
+    """Adam with optax's defaults, and the clip to [0, 1], over ``params``
+    (plain tensors)."""
+    return ClippedAdam(list(params), lr=learning_rate, betas=(0.9, 0.999),
+                       eps=1e-8)
+
+
+def adam_step(opt: ClippedAdam, params, grads) -> None:
+    """One Adam update of ``params`` by ``grads`` with the clip to [0, 1]
+    (the inverse loop of the JAX package: optax update, apply, clip)."""
     with annotate("bm.optim.adam_step"):
         for p, g in zip(params, grads):
             p.grad = g
         opt.step()
-        with torch.no_grad(), annotate("bm.optim.clip"):
-            for p in params:
-                p.clamp_(0.0, 1.0)
-                p.grad = None
+        for p in params:
+            p.grad = None
 
 
-def adam_state_arrays(opt: torch.optim.Adam, params) -> list[np.ndarray]:
+def adam_state_arrays(opt: ClippedAdam, params) -> list[np.ndarray]:
     """The optax ``adam`` state's leaves in tree-flatten order:
     [count (int32), mu_0, ..., mu_k, nu_0, ..., nu_k]."""
     states = [opt.state.get(p, {}) for p in params]
@@ -54,7 +88,7 @@ def adam_state_arrays(opt: torch.optim.Adam, params) -> list[np.ndarray]:
             + [moment(st, "exp_avg_sq", p) for st, p in zip(states, params)])
 
 
-def load_adam_state(opt: torch.optim.Adam, params, leaves) -> None:
+def load_adam_state(opt: ClippedAdam, params, leaves) -> None:
     """Inverse of :func:`adam_state_arrays`."""
     k = len(params)
     count = int(np.asarray(leaves[0]))

@@ -15,7 +15,8 @@ The program's spans are named ``bm.<layer>[.<phase>]`` and nest as the calls
 do: ``bm.wave`` (``.uniforms``, ``.primary``, a ``.trace`` and a ``.shade`` a
 bounce and one more of each for the final shadow trace), ``bm.sparse.step``
 (``.pack_field``, ``.zero_grad``, ``.slices``, ``.finalize``),
-``bm.optim.adam_step`` (``bm.optim.clip``), ``bm.stream.plan`` and
+``bm.optim.adam_step`` (the update with its clip, one kernel on the
+card), ``bm.stream.plan`` and
 ``bm.stream.install``; ``bm.sync.<site>`` marks a host read of a device value
 (``bm.sync.tier_read``, the cached step's one read, and
 ``bm.sync.pull_requests``), so that a device-idle gap under it is the host

@@ -10,8 +10,8 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels (nvcc, all sources at once, rebuilt even where a
    build exists) and the native heightfield (g++); print the ptxas summary,
-   and fail if B1's, B2's, B3's, W0-W4's or R1-R2's build has a stack frame
-   or spills;
+   and fail if B1's, B2's, B3's, W0-W4's, R1-R2's or A1's build has a
+   stack frame or spills;
 3. kernel B1 (brick DDA) against its plain torch version, every output
    equal (``t`` included): 1M random rays at densities 0.12, 0.5 and 0.9,
    ``bench.py``'s 2M rays, origins around the brick, edge values of
@@ -78,7 +78,9 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    world, 1920x1080 = 2,073,600 rays, K = 8 (``run_sparse_inverse_
    benchmark``: active-brick pre-pass, an uncached and a cached step, 3 Adam
    steps).  B3, R1, B4f, R2 and B4b must each launch, R1/B4f/R2/B4b once
-   a 16,384-ray slice in every step, no plain version may run, no ray may
+   a 16,384-ray slice in every step, A1 (Adam + clip) once a field an Adam
+   step,
+   no plain version may run, no ray may
    exhaust its budget, the loss must be finite and fall and the gradients
    finite and not all zero.  Then one uncached step through the kernels is
    held against one with their plain versions swapped in (loss equal,
@@ -98,7 +100,15 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    its bound and, for B4f/B4b, a PyTorch call; one slice is timed by part
    and profiled: its host ms, device busy ms and idle share, at most 6
    kernel launches and no cumprod, addcmul, index_select or index_add_
-   kernel;
+   kernel.  Last, A1 against its plain version, bit for bit (a NaN as a
+   NaN), over steps 1 to 3 on fields of 2^26 + 3 and 3 * 2^26 + 1 elements,
+   with gradients at 0, NaN and across the clip's bounds; then at the
+   benchmark's field sizes (1,512,833,024 elements, the albedo past 2^32
+   bytes): A1 alone beside its bound (28 bytes an element), one profiled
+   ``adam_step``, whose only kernel must be A1, one step bit for bit
+   against the plain version (run in slices of 2^26 elements and timed
+   over all of them), and one ``torch.optim.Adam`` (foreach) step +
+   ``clamp_``;
 8. streaming: a cold start on the phase-5 world (``run_streaming_
    benchmark``: view 0, 1920x1080, 3 bounces, queue 1024, segments from 16
    rows, 48 waves, each wave's requests serviced before the next).  B2 is
@@ -499,7 +509,8 @@ def main() -> int:
                 print(f"  ptxas {name}: {line}")
         if not native_ok[0]:
             fail("native heightfield (g++) did not build")
-        for name in ("brick", "traverse", "record", "wave", "replay"):
+        for name in ("brick", "traverse", "record", "wave", "replay",
+                     "adam"):
             if not ptxas_clean(name):
                 fail(f"{name}.cu: ptxas reports a stack frame or spills")
 
@@ -1483,9 +1494,11 @@ def main() -> int:
             del got, want, u
 
     # ------------------------------------------------------------------
-    from brickmap_tpu_torch.diff import sparse as dsparse
+    from brickmap_tpu_torch.diff import optim as doptim, sparse as dsparse
+    from brickmap_tpu_torch.kernels import adam as kadam
     from brickmap_tpu_torch.kernels import extract as kext, record as krec
     from brickmap_tpu_torch.kernels import replay as krep
+    from brickmap_tpu_torch.ops.adam import adam_update_plain, step_scalars
     from brickmap_tpu_torch.ops.extract import extract_bwd_plain, \
         extract_fwd_plain, field_index
     from brickmap_tpu_torch.ops.record import record_segments_plain
@@ -1627,19 +1640,22 @@ def main() -> int:
                "1920x1080 rays, K = 8"):
         K = benchmark.SPARSE_K
         nvox = 3 * cfg.grid.brick_size - 2
-        plain_calls = {"B3": 0, "R1": 0, "B4f": 0, "R2": 0, "B4b": 0}
+        plain_calls = {"B3": 0, "R1": 0, "B4f": 0, "R2": 0, "B4b": 0,
+                       "A1": 0}
         saved = [counting(krec, "record_segments_plain", "B3"),
                  counting(krep, "segment_geom_plain", "R1"),
                  counting(kext, "extract_fwd_plain", "B4f"),
                  counting(krep, "composite_sse_plain", "R2"),
-                 counting(kext, "extract_bwd_plain", "B4b")]
+                 counting(kext, "extract_bwd_plain", "B4b"),
+                 counting(kadam, "adam_update_plain", "A1")]
         train_kernels = {"B3": krec.record_segments,
                          "R1": krep.segment_geom, "B4f": kext.extract_fwd,
                          "R2": krep.composite_sse, "B4b": kext.extract_bwd}
-        for f in train_kernels.values():
+        for f in (*train_kernels.values(), kadam.adam_update):
             f.launches = 0
         out7 = benchmark.run_sparse_inverse_benchmark(world, cfg.grid)
         launches = {k: f.launches for k, f in train_kernels.items()}
+        launches["A1"] = kadam.adam_update.launches
         restore(saved)
         frame = out7.pop("frame")
         print(f"  active bricks A = {out7['active_bricks']} (the JAX "
@@ -1661,6 +1677,10 @@ def main() -> int:
               f"{plain_calls}")
         if any(v < 1 for v in launches.values()):
             fail(f"a kernel of the training path did not launch: {launches}")
+        if launches["A1"] != 2 * benchmark.SPARSE_ADAM_STEPS:
+            fail(f"A1 launched {launches['A1']} times in "
+                 f"{benchmark.SPARSE_ADAM_STEPS} Adam steps, not once a "
+                 f"field a step")
         if any(plain_calls.values()):
             fail(f"plain versions ran on the training path: {plain_calls}")
         # A replay slice is R1 -> B4f -> R2 -> B4b: each of the four
@@ -2060,6 +2080,172 @@ def main() -> int:
         del dfield, field4, cellmap_a, sl_in, flat, lin2, dv, vals
         del sse_k, dv_k
 
+        # A1, the Adam update with its clip, against its plain version on
+        # the card, bit for bit (a NaN as a NaN), over steps 1 to 3: an
+        # occupancy-like field of 2^26 + 3 elements and an albedo-like one
+        # of 3 * 2^26 + 1 (16-byte words, scalar tails), with gradients at
+        # 0, NaN and large enough to cross 0 or 1, parameters at 0 and 1.
+        def a1_grad(n):
+            g = torch.randn(n, generator=gen, device=dev) * 0.1
+            pick = torch.randint(0, 8, (n,), generator=gen, device=dev)
+            g[pick == 2] = 0.0
+            g[pick == 3] = 50.0
+            g[pick == 4] = -50.0
+            g[::9973] = float("nan")
+            return g
+
+        def a1_leaf(n):
+            p = torch.rand(n, generator=gen, device=dev)
+            pick = torch.randint(0, 8, (n,), generator=gen, device=dev)
+            p[pick == 0] = 0.0
+            p[pick == 1] = 1.0
+            return [p, a1_grad(n),
+                    torch.randn(n, generator=gen, device=dev) * 0.01,
+                    torch.rand(n, generator=gen, device=dev) * 1e-3]
+
+        def a1_diff(a, b):
+            """Whether ``a`` equals ``b`` bit for bit (a NaN as a NaN), and
+            the largest |a - b| over the elements neither holds as NaN."""
+            na, nb = torch.isnan(a), torch.isnan(b)
+            same = torch.equal(na, nb) and torch.equal(
+                torch.where(nb, 0.0, a).view(torch.int32),
+                torch.where(nb, 0.0, b).view(torch.int32))
+            return same, float(torch.where(na | nb, 0.0,
+                                           (a - b).abs()).max())
+
+        def a1_plain(leaves, step):
+            for p, g, m, v in leaves:
+                adam_update_plain(p, g, m, v, *betas7, eps7,
+                                  *step_scalars(lr7, *betas7, step))
+
+        lr7, betas7, eps7 = benchmark.SPARSE_LR, (0.9, 0.999), 1e-8
+        a1_n = ((1 << 26) + 3, 3 * (1 << 26) + 1)
+        a1_k = [a1_leaf(n) for n in a1_n]
+        a1_p = [[t.clone() for t in lf] for lf in a1_k]
+        for step in (1, 2, 3):
+            for lk, lp in zip(a1_k, a1_p):
+                lk[1] = lp[1] = a1_grad(lk[0].shape[0])
+            for lf in a1_k:
+                kadam.adam_update(*lf, step, lr7, betas7, eps7)
+            a1_plain(a1_p, step)
+            for i, (lk, lp) in enumerate(zip(a1_k, a1_p)):
+                for name, x, y in zip("pmv", lk[:1] + lk[2:],
+                                      lp[:1] + lp[2:]):
+                    same, err = a1_diff(x, y)
+                    if not same:
+                        fail(f"A1 step {step}, field {i} ({a1_n[i]} "
+                             f"elements): {name} differs from the plain "
+                             f"version by up to {err}")
+        a1_nan = int(torch.isnan(a1_k[0][0]).sum())
+        a1_edges = [int((a1_k[0][0] == x).sum()) for x in (0.0, 1.0)]
+        print(f"  A1 at {list(a1_n)} elements, steps 1-3: p, m and v equal "
+              f"to the plain version bit for bit (occupancy field after "
+              f"step 3: {a1_nan} NaN, {a1_edges[0]} at 0, {a1_edges[1]} at "
+              f"1); ptxas {ptxas_line('adam')}", flush=True)
+        del a1_k, a1_p
+
+        # A1 at the benchmark's field sizes (the active bricks' occupancy
+        # and albedo; the albedo's 4.5 GB pass 2^32 bytes): alone, by events
+        # around each launch of adam_step, against its bound (28 bytes an
+        # element: p, g, m, v read, p, m, v written); one profiled
+        # adam_step, whose only kernel must be A1; then one more step held
+        # bit for bit against the plain version on copies of the fields and
+        # moments taken before it (in slices of 2^26 elements: the update
+        # is per element), the plain version timed over the same elements;
+        # beside one torch.optim.Adam (foreach) step + clamp_ on the same
+        # tensors, the update A1 replaced.
+        n_occ = out7["active_bricks"] * 512
+        occ_f = torch.rand(n_occ, generator=gen, device=dev)
+        alb_f = torch.rand(3 * n_occ, generator=gen, device=dev)
+        grads_f = (torch.randn(n_occ, generator=gen, device=dev) * 1e-3,
+                   torch.randn(3 * n_occ, generator=gen, device=dev) * 1e-3)
+        for p, g in zip((occ_f, alb_f), grads_f):
+            # The last elements, past 2^32 bytes in the albedo: parameters
+            # on the clip's bounds pushed outwards, others pushed across
+            # them, a zero gradient, a NaN.
+            p[-6:-4] = torch.tensor([0.0, 1.0], device=dev)
+            g[-6:] = torch.tensor([50.0, -50.0, 50.0, -50.0, 0.0,
+                                   float("nan")], device=dev)
+        params_f = (occ_f, alb_f)
+        opt_f = doptim.make_adam(params_f, lr7)
+        doptim.adam_step(opt_f, params_f, grads_f)
+        torch.cuda.synchronize()
+        kadam.adam_update.events = []
+        for _ in range(5):
+            doptim.adam_step(opt_f, params_f, grads_f)
+        torch.cuda.synchronize()
+        a1_ms = sum(a.elapsed_time(b)
+                    for a, b in kadam.adam_update.events) / 5
+        kadam.adam_update.events = None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            doptim.adam_step(opt_f, params_f, grads_f)
+            torch.cuda.synchronize()
+        a1_acts = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        a1_names = sorted({e.name for e in a1_acts})
+        a1_prof_ms = sum(e.time_range.end - e.time_range.start
+                         for e in a1_acts) / 1e3
+        a1_before = [(p.clone(), opt_f.state[p]["exp_avg"].clone(),
+                      opt_f.state[p]["exp_avg_sq"].clone())
+                     for p in params_f]
+        a1_step = int(opt_f.state[occ_f]["step"]) + 1
+        doptim.adam_step(opt_f, params_f, grads_f)
+        torch.cuda.synchronize()
+        a1_err, a1_plain_ms, a1_slice = 0.0, 0.0, 1 << 26
+        for i, (p, (p0, m0, v0), g) in enumerate(zip(params_f, a1_before,
+                                                      grads_f)):
+            got = (p, opt_f.state[p]["exp_avg"], opt_f.state[p]["exp_avg_sq"])
+            for lo in range(0, p.numel(), a1_slice):
+                hi = min(lo + a1_slice, p.numel())
+                t1 = time.perf_counter()
+                a1_plain([(p0[lo:hi], g[lo:hi], m0[lo:hi], v0[lo:hi])],
+                         a1_step)
+                torch.cuda.synchronize()
+                a1_plain_ms += (time.perf_counter() - t1) * 1e3
+                for name, x, y in zip("pmv", got, (p0, m0, v0)):
+                    same, err = a1_diff(x[lo:hi], y[lo:hi])
+                    a1_err = max(a1_err, err)
+                    if not same:
+                        fail(f"A1 at the benchmark's fields, step {a1_step}"
+                             f", field {i}, elements {lo}-{hi}: {name} "
+                             f"differs from the plain version by up to "
+                             f"{err}")
+            if not (bool(torch.isnan(p[-1])) and float(p[-5]) == 1.0
+                    and float(p[-6]) == 0.0):
+                fail(f"A1 at the benchmark's fields, field {i}: the last "
+                     f"elements lost their NaN or bounds: "
+                     f"{p[-6:].tolist()}")
+        del a1_before, got, p0, m0, v0
+        del opt_f
+        torch.cuda.empty_cache()
+        lib_opt = torch.optim.Adam(list(params_f), lr=lr7, betas=betas7,
+                                   eps=eps7)
+
+        def lib_step():
+            for p, g in zip(params_f, grads_f):
+                p.grad = g
+            lib_opt.step()
+            for p in params_f:
+                p.clamp_(0.0, 1.0)
+
+        a1_lib_ms = cuda_ms(lib_step, 3)
+        del lib_opt, occ_f, alb_f, grads_f, params_f, p, g
+        torch.cuda.empty_cache()
+        a1_elems = 4 * n_occ
+        a1_bound, a1_by = bound(28 * a1_elems, 0)
+        print(f"  A1 at the benchmark's fields ({n_occ} + {3 * n_occ} = "
+              f"{a1_elems} elements): step {a1_step} equal to the plain "
+              f"version bit for bit (max |err| {a1_err}; plain "
+              f"{a1_plain_ms:.4f} ms over the same elements in slices of "
+              f"2^26); {a1_ms:.4f} ms alone (profiled {a1_prof_ms:.4f} ms; "
+              f"kernels of one adam_step: {a1_names}), bound "
+              f"{a1_bound:.4f} ms by {a1_by}, "
+              f"{100 * a1_bound / a1_ms:.1f}% of it; torch.optim.Adam "
+              f"(foreach) step + clamp_ {a1_lib_ms:.4f} ms", flush=True)
+        if len(a1_names) != 1 or "adam_kernel" not in a1_names[0]:
+            fail(f"adam_step on the card ran {a1_names}, not A1 alone")
+
         records["B3"] = {
             "name": "record (B3)", "route": "cuda",
             "source": "brickmap_tpu_torch/csrc/record.cu",
@@ -2099,6 +2285,13 @@ def main() -> int:
             "launches": launches["R2"], "max_abs_err": r2_err, "ms": r2_ms,
             "plain_ms": r2_plain_ms, "bound_ms": r2_bound,
             "bound_by": r2_by, "library_ms": None}
+        records["A1"] = {
+            "name": "Adam + clip (A1)", "route": "cuda",
+            "source": "brickmap_tpu_torch/csrc/adam.cu",
+            "replaces": "brickmap_tpu/diff/optim.py (optax.adam + clip)",
+            "launches": launches["A1"], "max_abs_err": a1_err, "ms": a1_ms,
+            "plain_ms": a1_plain_ms, "bound_ms": a1_bound,
+            "bound_by": a1_by, "library_ms": a1_lib_ms}
 
     # ------------------------------------------------------------------
     from brickmap_tpu_torch.config import BRICK_LOADED_BIT
@@ -2741,7 +2934,8 @@ def main() -> int:
     print(smi_line())
     print(json.dumps({"kernels": [records[k] for k in
                                   ("B1", "B2", "B3", "B4f", "B4b", "W0",
-                                   "W1", "W2", "W3", "W4", "R1", "R2")]}))
+                                   "W1", "W2", "W3", "W4", "R1", "R2",
+                                   "A1")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

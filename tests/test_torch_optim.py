@@ -5,8 +5,14 @@ the JAX package's, same inputs.
 * Dense compositor and its loss/gradients: atol 1e-5, rtol 1e-6.
 * Adam against ``optax.adam`` over the same gradients: rtol 1e-5, atol 3e-6.
   optax takes the bias correction 1 - 0.999^t in float32 (1.3e-5 relative
-  off at t = 1), torch.optim.Adam in double, so parameters moved by a few
-  steps of size lr = 0.05 differ by up to ~2e-6 absolute.
+  off at t = 1), the port in double, so parameters moved by a few steps of
+  size lr = 0.05 differ by up to ~2e-6 absolute.
+* The port's optimizer on the CPU (kernel A1's plain version) against
+  ``torch.optim.Adam`` and ``clamp_``, the arithmetic it replaced, over 3
+  steps: parameters and second moments within 4 ulp, first moments within 4
+  ulp of their largest value (torch's is a lerp, which rounds apart where
+  the two terms nearly cancel); and its state through
+  ``adam_state_arrays`` / ``load_adam_state`` and back, the next step equal.
 * A JAX ``InverseRenderer`` checkpoint resumed in the port, and back: the
   next loss matches to rtol 1e-5.
 """
@@ -103,6 +109,76 @@ def test_adam_matches_optax(rng):
     for a, b in zip(toptim.adam_state_arrays(topt, tp), leaves):
         # torch's first moment is a lerp, optax's a weighted sum: ulps.
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-7)
+
+
+def clip_problem(rng):
+    """Fields with values at 0 and 1, and 3 steps of gradients, some 0."""
+    occ = rng.uniform(0, 1, (6, 6, 6)).astype(np.float32)
+    occ[occ < 0.2] = 0.0
+    occ[occ > 0.9] = 1.0
+    alb = rng.uniform(0, 1, (6, 6, 6, 3)).astype(np.float32)
+    grads = []
+    for _ in range(3):
+        go = rng.normal(size=occ.shape).astype(np.float32)
+        ga = rng.normal(size=alb.shape).astype(np.float32)
+        go[::2, 0, 0] = 0.0
+        grads.append((t(go), t(ga)))
+    return (t(occ), t(alb)), grads
+
+
+def test_clipped_adam_matches_torch_adam_and_clamp(rng):
+    params, grads = clip_problem(rng)
+    mine = tuple(p.clone() for p in params)
+    ref = tuple(p.clone() for p in params)
+    opt = toptim.make_adam(mine, 0.05)
+    assert not isinstance(opt, torch.optim.Adam)
+    ropt = torch.optim.Adam(list(ref), lr=0.05, betas=(0.9, 0.999),
+                            eps=1e-8)
+    for gs in grads:
+        toptim.adam_step(opt, mine, gs)
+        for p, g in zip(ref, gs):
+            p.grad = g
+        ropt.step()
+        with torch.no_grad():
+            for p in ref:
+                p.clamp_(0.0, 1.0)
+                p.grad = None
+    for a, b in zip(mine, ref):
+        assert bool(((a >= 0) & (a <= 1)).all())
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=2.0 ** -22)   # 4 ulp in [0.5, 1)
+        sa, sb = opt.state[a], ropt.state[b]
+        assert int(sa["step"]) == int(sb["step"]) == 3
+        np.testing.assert_allclose(sa["exp_avg_sq"].numpy(),
+                                   sb["exp_avg_sq"].numpy(),
+                                   rtol=4 * 2.0 ** -23, atol=0)
+        top = np.float32(sb["exp_avg"].abs().max())
+        np.testing.assert_allclose(sa["exp_avg"].numpy(),
+                                   sb["exp_avg"].numpy(), rtol=0,
+                                   atol=4 * np.spacing(top))
+
+
+def test_clipped_adam_state_round_trip(rng):
+    params, grads = clip_problem(rng)
+    a = tuple(p.clone() for p in params)
+    opt = toptim.make_adam(a, 0.05)
+    for gs in grads[:2]:
+        toptim.adam_step(opt, a, gs)
+    leaves = toptim.adam_state_arrays(opt, a)
+    assert int(leaves[0]) == 2 and leaves[0].dtype == np.int32
+    b = tuple(p.clone() for p in a)
+    opt_b = toptim.make_adam(b, 0.05)
+    toptim.load_adam_state(opt_b, b, leaves)
+    for x, y in zip(toptim.adam_state_arrays(opt_b, b), leaves):
+        np.testing.assert_array_equal(x, y)
+    toptim.adam_step(opt, a, grads[2])
+    toptim.adam_step(opt_b, b, grads[2])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    for x, y in zip(toptim.adam_state_arrays(opt, a),
+                    toptim.adam_state_arrays(opt_b, b)):
+        np.testing.assert_array_equal(x, y)
+    assert opt_b.param_groups[0]["betas"] == (0.9, 0.999)
 
 
 def optim_problem(rng, g=8, n=128):
