@@ -20,6 +20,14 @@ The truth scene's arrays stay on the host as NumPy, in the role of the
 reference's CPU supergrid (Scene.h:19-29); the device holds only the index
 volume and the resident bricks.  The JAX package's paged layout and
 ``block_words`` are TPU mechanisms that the port's B2 does not read.
+
+:meth:`StreamingScene.reset` takes the residency back to cold (every brick
+unloaded, each segment at its starting capacity) without reading the truth
+again: a viewer that reopens its world or jumps to another region.  Spans
+(``utils/profiling.py``): ``bm.stream.pull`` around the whole of
+:func:`pull_requests` (its device-to-host copy in ``bm.sync.pull_requests``),
+``bm.stream.plan``, ``bm.stream.install`` (the re-base inside it in
+``bm.stream.rebase``) and ``bm.stream.reset``.
 """
 
 from __future__ import annotations
@@ -68,14 +76,15 @@ def pull_requests(req: dict, queue_size: int = 1024) -> list:
     JAX package's cap on raw lanes, ahead of the manager's dedupe), with one
     device-to-host copy: the count and the rows travel in one int32 tensor.
     """
-    cap = 4 * queue_size
-    total, rows, _ = compact_requests(req["mask"], req["pos"], cap)
-    packed = torch.cat([torch.clamp(total, max=cap).to(torch.int32).view(1),
-                        rows.reshape(-1)])
-    with annotate("bm.sync.pull_requests"):
-        packed = packed.cpu().numpy()
-    got = packed[1:1 + 3 * int(packed[0])].reshape(-1, 3)
-    return [tuple(r) for r in got.tolist()]
+    with annotate("bm.stream.pull"):
+        cap = 4 * queue_size
+        total, rows, _ = compact_requests(req["mask"], req["pos"], cap)
+        packed = torch.cat([torch.clamp(total, max=cap).to(torch.int32).view(
+            1), rows.reshape(-1)])
+        with annotate("bm.sync.pull_requests"):
+            packed = packed.cpu().numpy()
+        got = packed[1:1 + 3 * int(packed[0])].reshape(-1, 3)
+        return [tuple(r) for r in got.tolist()]
 
 
 def _u32(mask: int) -> np.uint32:
@@ -110,8 +119,14 @@ class StreamingScene:
     ``unloaded | lod`` and no payloads, and empty cells keep their skip
     distance (Scene.cpp:157-175); each superchunk's segment starts at
     ``starting_capacity`` rows.  :meth:`device_scene` is the scene to trace
-    on ``device``; call it again after :meth:`process_requests`, which may
-    replace the pool tensor.
+    on ``device``; call it again after :meth:`process_requests` and
+    :meth:`reset`, which may replace the pool tensor.
+
+    Totals, host integers: ``total_requests`` (request lanes handed to
+    :meth:`plan`), ``total_uploaded``, ``total_dropped`` (distinct unloaded
+    bricks beyond the cap) and ``total_rebases`` (batches whose segment
+    growth re-based the pool) count since the last :meth:`reset`;
+    ``total_resets`` counts the resets.
     """
 
     def __init__(self, truth: TorchScene, grid: GridConfig,
@@ -131,20 +146,57 @@ class StreamingScene:
                                 BRICK_LOD_BITS)),
                             iv & _u32(BRICK_DIST_MASK)).astype(np.uint32)
 
-        s = grid.num_superchunks
-        self.capacity = np.full(s, starting_capacity, np.int64)
-        self.highest = np.zeros(s, np.int64)      # gpu_index_highest
-        self._rebase()
-        self.total_uploaded = 0
-        self.total_dropped = 0
+        self.starting_capacity = starting_capacity
+        self._clear_residency()
+        self.total_resets = 0
 
         dev = self.device
         self._dev_iv = torch.from_numpy(self._iv.view(np.int32)).to(
             dev, copy=True)
-        self._dev_pool = torch.zeros((self._padded_total(),
-                                      grid.cell_members), dtype=torch.int32,
-                                     device=dev)
+        self._dev_pool = self._empty_pool()
         self._dev_base = torch.from_numpy(self.pool_base).to(dev, copy=True)
+
+    def _clear_residency(self) -> None:
+        """The host's segments and totals as they are cold."""
+        s = self.grid.num_superchunks
+        self.capacity = np.full(s, self.starting_capacity, np.int64)
+        self.highest = np.zeros(s, np.int64)      # gpu_index_highest
+        self._rebase()
+        self._loaded = []   # the cells each batch loaded, int32 arrays
+        self.total_requests = 0
+        self.total_uploaded = 0
+        self.total_dropped = 0
+        self.total_rebases = 0
+
+    def _empty_pool(self) -> torch.Tensor:
+        return torch.zeros((self._padded_total(), self.grid.cell_members),
+                           dtype=torch.int32, device=self.device)
+
+    def reset(self) -> None:
+        """Every brick unloaded again and every segment back at
+        ``starting_capacity`` rows: afterwards :meth:`state` equals a fresh
+        manager's over the same truth, the totals cleared, except
+        ``total_resets``, which counts this reset.
+
+        The truth is not read: the words of the cells loaded since the last
+        reset go back to ``unloaded | lod`` (the LoD byte is kept in the
+        loaded word), so the host's work is O(bricks loaded), and the
+        device's is one copy and scatter of those words plus a new zeroed
+        pool."""
+        with annotate("bm.stream.reset"):
+            if self._loaded:
+                cells = np.concatenate(self._loaded)
+                flat = self._iv.reshape(-1)
+                words = _u32(BRICK_UNLOADED_BIT) | (flat[cells]
+                                                     & _u32(BRICK_LOD_BITS))
+                flat[cells] = words
+                rows = torch.from_numpy(np.stack(
+                    [cells, words.view(np.int32)])).to(self.device)
+                self._dev_iv.view(-1).index_copy_(0, rows[0].long(), rows[1])
+            self._clear_residency()
+            self.total_resets += 1
+            self._dev_pool = self._empty_pool()
+            self._dev_base.copy_(torch.from_numpy(self.pool_base))
 
     # -- bookkeeping --------------------------------------------------------
 
@@ -193,6 +245,7 @@ class StreamingScene:
         the host bookkeeping; :meth:`install` must follow with the batch."""
         with annotate("bm.stream.plan"):
             req = np.asarray(list(requests), np.int64).reshape(-1, 3)
+            self.total_requests += req.shape[0]
             cz, cy, cx = self._iv.shape
             if ((req < 0) | (req >= np.array([cx, cy, cz]))).any():
                 raise ValueError("a request lies outside the brick grid")
@@ -232,6 +285,7 @@ class StreamingScene:
                          | (twords & _u32(BRICK_LOD_BITS))
                          | slots.astype(np.uint32))
             self._iv.reshape(-1)[lin] = new_words
+            self._loaded.append(lin.astype(np.int32))
             rows = np.empty((n, self.grid.cell_members + 3), np.int32)
             rows[:, :-3] = self._truth_pool[tslots].view(np.int32)
             rows[:, -3] = lin
@@ -257,21 +311,23 @@ class StreamingScene:
         """Move every segment's resident rows to its new base (every segment
         moves, grown or not: the bases are a running sum) with one gather
         from the old pool into a new zeroed one."""
-        dev = self.device
-        n_kept = int(kept.sum())
-        pool = torch.zeros((self._padded_total(), self.grid.cell_members),
-                           dtype=torch.int32, device=dev)
-        if n_kept:
-            meta = torch.from_numpy(np.stack([
-                kept, old_base, self.pool_base.astype(np.int64),
-                np.cumsum(kept) - kept])).to(dev)
-            sc = torch.repeat_interleave(
-                torch.arange(kept.shape[0], device=dev), meta[0],
-                output_size=n_kept)
-            offset = torch.arange(n_kept, device=dev) - meta[3][sc]
-            pool[meta[2][sc] + offset] = self._dev_pool[meta[1][sc] + offset]
-        self._dev_pool = pool
-        self._dev_base.copy_(torch.from_numpy(self.pool_base))
+        with annotate("bm.stream.rebase"):
+            dev = self.device
+            n_kept = int(kept.sum())
+            pool = self._empty_pool()
+            if n_kept:
+                meta = torch.from_numpy(np.stack([
+                    kept, old_base, self.pool_base.astype(np.int64),
+                    np.cumsum(kept) - kept])).to(dev)
+                sc = torch.repeat_interleave(
+                    torch.arange(kept.shape[0], device=dev), meta[0],
+                    output_size=n_kept)
+                offset = torch.arange(n_kept, device=dev) - meta[3][sc]
+                pool[meta[2][sc] + offset] = self._dev_pool[meta[1][sc]
+                                                            + offset]
+            self._dev_pool = pool
+            self._dev_base.copy_(torch.from_numpy(self.pool_base))
+            self.total_rebases += 1
 
     # -- diagnostics --------------------------------------------------------
 
@@ -280,21 +336,36 @@ class StreamingScene:
         Scene.cpp:254)."""
         return self.highest.copy()
 
+    def truth_arrays(self) -> tuple:
+        """The truth the payloads come from, as the host holds it (no
+        copy): index volume (uint32 [CZ, CY, CX]), pool rows (uint32
+        [P, cell_members]) and segment bases (int64 [S])."""
+        return self._truth_iv, self._truth_pool, self._truth_base
+
     def fully_resident(self) -> bool:
         return not ((self._iv & _u32(BRICK_UNLOADED_BIT)) != 0).any()
+
+    @staticmethod
+    def _host(t: torch.Tensor) -> np.ndarray:
+        """A NumPy copy of ``t`` (``.cpu()`` of a CPU tensor is the tensor
+        itself, whose later scatters a snapshot must not see)."""
+        return t.to("cpu", copy=True).numpy()
 
     def state(self) -> dict:
         """NumPy copies of the residency state: the device's index volume
         (uint32), pool rows (uint32) and bases, and the host's capacities,
-        resident counts and totals."""
+        resident counts and totals (as the class docstring says)."""
         return {
-            "index_volume": self._dev_iv.cpu().numpy().view(np.uint32),
-            "pool_words": self._dev_pool.cpu().numpy().view(np.uint32),
-            "pool_base": self._dev_base.cpu().numpy(),
+            "index_volume": self._host(self._dev_iv).view(np.uint32),
+            "pool_words": self._host(self._dev_pool).view(np.uint32),
+            "pool_base": self._host(self._dev_base),
             "capacity": self.capacity.copy(),
             "highest": self.highest.copy(),
+            "total_requests": self.total_requests,
             "total_uploaded": self.total_uploaded,
             "total_dropped": self.total_dropped,
+            "total_rebases": self.total_rebases,
+            "total_resets": self.total_resets,
         }
 
     def surface_stats(self) -> dict:

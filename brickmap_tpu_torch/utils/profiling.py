@@ -16,11 +16,13 @@ do: ``bm.wave`` (``.uniforms``, ``.primary``, a ``.trace`` and a ``.shade`` a
 bounce and one more of each for the final shadow trace), ``bm.sparse.step``
 (``.pack_field``, ``.zero_grad``, ``.slices``, ``.finalize``),
 ``bm.optim.adam_step`` (the update with its clip, one kernel on the
-card), ``bm.stream.plan`` and
-``bm.stream.install``; ``bm.sync.<site>`` marks a host read of a device value
+card), and streaming's ``bm.stream.pull`` (the whole of ``pull_requests``),
+``bm.stream.plan``, ``bm.stream.install`` (``.rebase`` inside it when a
+segment grows) and ``bm.stream.reset`` (residency back to cold);
+``bm.sync.<site>`` marks a host read of a device value
 (``bm.sync.tier_read``, the cached step's one read, and
-``bm.sync.pull_requests``), so that a device-idle gap under it is the host
-waiting.  The ranges sit on the profiler's clock, the one its device
+``bm.sync.pull_requests`` inside ``bm.stream.pull``), so that a device-idle
+gap under it is the host waiting.  The ranges sit on the profiler's clock, the one its device
 activities carry.
 """
 

@@ -223,5 +223,11 @@ def test_streaming_spans(world):
         got = pull_requests(req, mgr.queue_size)
         uploads = mgr.process_requests(got)
     assert got and uploads > 0
-    assert names(prof) == {"bm.stream.plan": 1, "bm.stream.install": 1,
-                           "bm.sync.pull_requests": 1}
+    want = {"bm.stream.pull": 1, "bm.sync.pull_requests": 1,
+            "bm.stream.plan": 1, "bm.stream.install": 1}
+    if mgr.total_rebases:
+        want["bm.stream.rebase"] = 1
+    assert names(prof) == want
+    with profile(activities=CPU) as prof:
+        mgr.reset()
+    assert names(prof) == {"bm.stream.reset": 1}
