@@ -573,7 +573,10 @@ def active_fields(scene, grid, cells: torch.Tensor):
     """The frame's active-brick set (``bench.py:416-440``): the pool rows of
     the recorded ``cells``, a cellmap remapped onto them, and the fields
     occupancy = bitmask * 0.8, albedo = 0.6 over those rows only (a frame's
-    gradients are zero on every brick it never records).
+    gradients are zero on every brick it never records).  The two fields
+    are the columns of one contiguous ``field4`` [A*512, 4] (occupancy, r,
+    g, b a voxel), the replay's layout, so that the sparse step reads them
+    with no copy and Adam steps them in one pass.
     Returns (cellmap_a [CZ,CY,CX], occ [A,512], alb [A,512,3])."""
     from .. import bits
     from ..diff.sparse import cell_pool_map
@@ -590,10 +593,12 @@ def active_fields(scene, grid, cells: torch.Tensor):
     cellmap_a = torch.where(cellmap >= 0,
                             inv[torch.clamp(cellmap, min=0).long()], -1)
     dense = bits.dense_from_brick_words(scene.pool_words[uniq.long()])
-    occ = dense.reshape(a, 512).to(torch.float32) * 0.8
-    alb = torch.full((a, 512, 3), 0.6, dtype=torch.float32,
-                     device=cells.device)
-    return cellmap_a, occ, alb
+    field4 = torch.empty((a * 512, 4), dtype=torch.float32,
+                         device=cells.device)
+    field4[:, 0] = dense.reshape(-1).to(torch.float32) * 0.8
+    field4[:, 1:] = 0.6
+    return cellmap_a, field4[:, 0].view(a, 512), \
+        field4[:, 1:].view(a, 512, 3)
 
 
 def run_sparse_inverse_benchmark(scene, grid, *, width: int = 1920,

@@ -77,14 +77,19 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
 7. the training path: the sparse inverse-rendering step on the phase-5
    world, 1920x1080 = 2,073,600 rays, K = 8 (``run_sparse_inverse_
    benchmark``: active-brick pre-pass, an uncached and a cached step, 3 Adam
-   steps).  B3, R1, B4f, R2 and B4b must each launch, R1/B4f/R2/B4b once
-   a 16,384-ray slice in every step, A1 (Adam + clip) once a field an Adam
-   step,
+   steps, on fields that are views of one interleaved ``field4``).  B3,
+   R1, B4f, R2 and B4b must each launch, R1/B4f/R2/B4b once a 16,384-ray
+   slice in every step, A1 (Adam + clip) once an Adam step (over the
+   fields' one storage),
    no plain version may run, no ray may
    exhaust its budget, the loss must be finite and fall and the gradients
    finite and not all zero.  Then one uncached step through the kernels is
    held against one with their plain versions swapped in (loss equal,
-   gradients within 1e-6 of their largest value), B3 against its plain
+   gradients within 1e-6 of their largest value); one cached step and one
+   Adam step on the interleaved fields against the same on contiguous
+   copies of them (the loss equal, the gradients within 1e-6 of their
+   largest value, A1 over the storage in one launch equal bit for bit to
+   A1 a field in two, each step's peak allocation printed), B3 against its plain
    version on the frame's rays (with its SIMD efficiency and ptxas line),
    and R1, B4f, R2 and B4b on the first 16,384-ray slice of the step's
    seg_cache at K = 8 (R1 also on its K = 2 and 4 column cuts, R2 also on
@@ -1677,10 +1682,10 @@ def main() -> int:
               f"{plain_calls}")
         if any(v < 1 for v in launches.values()):
             fail(f"a kernel of the training path did not launch: {launches}")
-        if launches["A1"] != 2 * benchmark.SPARSE_ADAM_STEPS:
+        if launches["A1"] != benchmark.SPARSE_ADAM_STEPS:
             fail(f"A1 launched {launches['A1']} times in "
                  f"{benchmark.SPARSE_ADAM_STEPS} Adam steps, not once a "
-                 f"field a step")
+                 f"step over the fields' one storage")
         if any(plain_calls.values()):
             fail(f"plain versions ran on the training path: {plain_calls}")
         # A replay slice is R1 -> B4f -> R2 -> B4b: each of the four
@@ -1755,6 +1760,78 @@ def main() -> int:
         if loss_k != loss_p or any(e > 1e-6 * m for e, m in grad_errs):
             fail(f"the step's loss ({loss_k!r} vs {loss_p!r}) or gradients "
                  f"({grad_errs}) differ from the plain versions'")
+
+        # The fields as the benchmark keeps them (views of one field4)
+        # against contiguous copies of them: one cached step on each (the
+        # interleaved one replays from the storage and scales its dfield in
+        # place, the contiguous one cats a field4 and copies the scaled
+        # gradients), each step's peak allocation over what was allocated
+        # before it; then one Adam step on each from zero moments, both
+        # with the interleaved step's gradients: A1 over the storage in one
+        # launch against A1 a field, equal bit for bit.
+        occ_i, alb_i = frame["occupancy"], frame["albedo"]
+        if doptim.tiled_base((occ_i, alb_i)) is None:
+            fail("the benchmark's fields are not views of one field4")
+        occ_c, alb_c = occ_i.contiguous(), alb_i.contiguous()
+
+        def cached_step(occ, alb):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = dsparse.l2_loss_and_grads_sparse(
+                o7, d7, world, frame["cellmap"], occ, alb,
+                frame["background"], frame["target"], cfg.grid,
+                k_segments=K, seg_cache=frame["seg_cache"])
+            torch.cuda.synchronize()
+            return (float(loss), grads, before,
+                    torch.cuda.max_memory_allocated())
+
+        packed0 = (dsparse._pack_field.shared, dsparse._pack_field.cats)
+        loss_i, g_i, before_i, peak_i = cached_step(occ_i, alb_i)
+        loss_c, g_c, before_c, peak_c = cached_step(occ_c, alb_c)
+        packed = (dsparse._pack_field.shared - packed0[0],
+                  dsparse._pack_field.cats - packed0[1])
+        g_errs = [(float((a - b).abs().max()), float(b.abs().max()))
+                  for a, b in zip(g_i, g_c)]
+        g_tiled = doptim.tiled_base(g_i) is not None
+        del g_c
+        lr_a = benchmark.SPARSE_LR
+        opt_i = doptim.make_adam((occ_i, alb_i), lr_a)
+        opt_c = doptim.make_adam((occ_c, alb_c), lr_a)
+        n0 = kadam.adam_update.launches
+        doptim.adam_step(opt_i, (occ_i, alb_i), g_i)
+        n_i = kadam.adam_update.launches - n0
+        g_ic = tuple(g.contiguous() for g in g_i)
+        del g_i
+        n0 = kadam.adam_update.launches
+        doptim.adam_step(opt_c, (occ_c, alb_c), g_ic)
+        n_c = kadam.adam_update.launches - n0
+        del g_ic
+        torch.cuda.synchronize()
+        a1_same = [torch.equal(p, q) and all(
+            torch.equal(opt_i.state[p][k], opt_c.state[q][k])
+            for k in ("exp_avg", "exp_avg_sq"))
+            for p, q in ((occ_i, occ_c), (alb_i, alb_c))]
+        print(f"  interleaved fields against contiguous copies, cached "
+              f"step: loss {loss_i!r} vs {loss_c!r}; max |dgrad| (max "
+              f"|grad|) {g_errs}; gradients views of one dfield: "
+              f"{g_tiled}; _pack_field storage / cat {packed}; peak "
+              f"allocated {peak_i} over {before_i} before it (+"
+              f"{peak_i - before_i}) vs contiguous {peak_c} over "
+              f"{before_c} (+{peak_c - before_c}) bytes; Adam step: A1 "
+              f"launches {n_i} vs {n_c}, p, m and v equal bit for bit "
+              f"(occupancy, albedo): {a1_same}", flush=True)
+        del opt_i, opt_c, occ_c, alb_c, occ_i, alb_i
+        torch.cuda.empty_cache()
+        if loss_i != loss_c or any(e > 1e-6 * m for e, m in g_errs) \
+                or not g_tiled or packed != (1, 1):
+            fail(f"the step on the interleaved fields differs from the "
+                 f"step on contiguous copies: loss {loss_i!r} vs "
+                 f"{loss_c!r}, gradients {g_errs}, views {g_tiled}, "
+                 f"_pack_field {packed}")
+        if (n_i, n_c) != (1, 2) or not all(a1_same):
+            fail(f"A1 on the fields' storage ({n_i} launches) against A1 "
+                 f"a field ({n_c}): equal {a1_same}")
 
         # B3 against its plain version on the frame's rays, timed there.
         got = krec.record_segments(o7, d7, world, cfg.grid, k_segments=K)
