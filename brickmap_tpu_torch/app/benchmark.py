@@ -539,7 +539,8 @@ def run_sparse_inverse_benchmark_small(device="cuda", grid=None, *,
     sc = scene_mod.generate_terrain_scene(grid, device=dev)
     cellmap = cell_pool_map(sc, grid)
     occ, alb = pool_fields_from_bitmask(sc)
-    occ, alb = occ * 0.8, alb * 0.6
+    occ.mul_(0.8)
+    alb.mul_(0.6)
     n = width * height
     origins, dirs, bg, tgt = sparse_inverse_rays(n, grid, dev,
                                                  span=SMALL_SPAN)
@@ -574,11 +575,10 @@ def active_fields(scene, grid, cells: torch.Tensor):
     the recorded ``cells``, a cellmap remapped onto them, and the fields
     occupancy = bitmask * 0.8, albedo = 0.6 over those rows only (a frame's
     gradients are zero on every brick it never records).  The two fields
-    are the columns of one contiguous ``field4`` [A*512, 4] (occupancy, r,
-    g, b a voxel), the replay's layout, so that the sparse step reads them
-    with no copy and Adam steps them in one pass.
+    are the views of one ``field4`` [A*512, 4] (``diff/field4.py``).
     Returns (cellmap_a [CZ,CY,CX], occ [A,512], alb [A,512,3])."""
     from .. import bits
+    from ..diff.field4 import new_fields
     from ..diff.sparse import cell_pool_map
 
     cellmap = cell_pool_map(scene, grid)
@@ -593,12 +593,10 @@ def active_fields(scene, grid, cells: torch.Tensor):
     cellmap_a = torch.where(cellmap >= 0,
                             inv[torch.clamp(cellmap, min=0).long()], -1)
     dense = bits.dense_from_brick_words(scene.pool_words[uniq.long()])
-    field4 = torch.empty((a * 512, 4), dtype=torch.float32,
-                         device=cells.device)
-    field4[:, 0] = dense.reshape(-1).to(torch.float32) * 0.8
-    field4[:, 1:] = 0.6
-    return cellmap_a, field4[:, 0].view(a, 512), \
-        field4[:, 1:].view(a, 512, 3)
+    occ, alb = new_fields(a, cells.device)
+    occ.copy_(dense.reshape(a, 512).to(torch.float32) * 0.8)
+    alb.fill_(0.6)
+    return cellmap_a, occ, alb
 
 
 def run_sparse_inverse_benchmark(scene, grid, *, width: int = 1920,

@@ -349,6 +349,7 @@ def _cmd_inverse_sparse(args, dev) -> int:
     the bounded-K row replay (B4f/B4b)."""
     from .. import scene as scene_mod
     from ..config import GridConfig
+    from ..diff.field4 import new_fields
     from ..diff.optim import adam_step, make_adam
     from ..diff.sparse import cell_pool_map, composite_sparse, \
         l2_loss_and_grads_sparse, pool_fields_from_bitmask
@@ -358,7 +359,7 @@ def _cmd_inverse_sparse(args, dev) -> int:
     grid = GridConfig(grid_size=args.world, grid_height=args.world_height)
     sc = scene_mod.generate_terrain_scene(grid, device=dev)
     cellmap = cell_pool_map(sc, grid)
-    occ_true, _ = pool_fields_from_bitmask(sc)
+    occ_true, alb_true = pool_fields_from_bitmask(sc)
     print(f"terrain world {args.world}^2x{args.world_height}, "
           f"{occ_true.shape[0]} resident bricks", file=sys.stderr)
 
@@ -369,8 +370,9 @@ def _cmd_inverse_sparse(args, dev) -> int:
     vz[cellmap[zz, yy, xx].long()] = (
         zz[:, None] * 8 + (torch.arange(512, device=dev) // 64)[None, :]
     ).to(torch.float32) / args.world_height
-    alb_true = torch.stack([0.2 + 0.7 * vz, 0.5 + 0.3 * torch.sin(vz * 9.0),
-                            0.9 - 0.6 * vz], dim=-1)
+    alb_true.copy_(torch.stack([0.2 + 0.7 * vz,
+                                0.5 + 0.3 * torch.sin(vz * 9.0),
+                                0.9 - 0.6 * vz], dim=-1))
 
     rng = np.random.default_rng(args.seed)
     n = args.rays
@@ -391,8 +393,9 @@ def _cmd_inverse_sparse(args, dev) -> int:
                                      occ_true, alb_true, bg, grid,
                                      k_segments=K)
 
-    occ = occ_true * 0.6    # soft start; recover hardness
-    alb = torch.full_like(alb_true, 0.5)
+    occ, alb = new_fields(occ_true.shape[0], dev)
+    occ.copy_(occ_true).mul_(0.6)    # soft start; recover hardness
+    alb.fill_(0.5)
     opt = make_adam((occ, alb), args.lr)
     t0 = time.perf_counter()
     loss0 = loss = None

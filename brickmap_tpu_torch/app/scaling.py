@@ -78,6 +78,7 @@ def run_scaling_benchmark(sc, cfg, width: int, height: int,
     Returns, on every rank, a dict with per-count rays/s and efficiency
     percentages (rank 0's clocks).
     """
+    from ..diff.field4 import field4_of, field4_views
     from ..diff.sparse import cell_pool_map, pool_fields_from_bitmask
     from ..ops import sunsky as ss
     from ..parallel.render import (inverse_train_step_sparse, make_mesh,
@@ -99,7 +100,10 @@ def run_scaling_benchmark(sc, cfg, width: int, height: int,
 
     inv_inputs = None
     if not skip_inverse:
-        fields = (cell_pool_map(sc, grid), *pool_fields_from_bitmask(sc))
+        # The fields travel as their field4, so that they stay its views
+        # on every rank's device.
+        fields = (cell_pool_map(sc, grid),
+                  field4_of(*pool_fields_from_bitmask(sc)))
         rng = np.random.default_rng(0)
         # Divisible by every device count.
         n = inverse_rays - inverse_rays % math.lcm(*device_counts)
@@ -150,7 +154,8 @@ def run_scaling_benchmark(sc, cfg, width: int, height: int,
 
         if inv_inputs is not None:
             o_s, d_s, bg_s, tgt_s = shard_rays(mesh, inv_inputs[0])
-            cm, occ, alb = replicate(mesh, inv_inputs[1])
+            cm, field4 = replicate(mesh, inv_inputs[1])
+            occ, alb = field4_views(field4)
 
             def step():
                 return inverse_train_step_sparse(

@@ -6,12 +6,10 @@ The port of ``brickmap_tpu/diff/optim.py``: Adam with optax's defaults
 each update, as :class:`ClippedAdam`, whose step is kernel A1
 (``kernels/adam.py``): one pass a field on the card, the plain torch
 version on the CPU.  Its state is ``torch.optim.Adam``'s (``step``,
-``exp_avg``, ``exp_avg_sq`` a parameter).  Parameters that tile one
-contiguous storage as column blocks (:func:`tiled_base`: the sparse
-fields of ``app/benchmark.py::active_fields``, views of one ``field4``
-[P*512, 4]) step as that storage, in one call, when their gradients tile
-one storage in the same places; their moments are made as views of one
-storage each in the same layout.  Checkpoints keep the JAX
+``exp_avg``, ``exp_avg_sq`` a parameter).  The sparse fields, views of
+one ``field4`` [P*512, 4] (``diff/field4.py``, their one layout), step as
+that ``field4`` in one call when their gradients and moments are views of
+one ``field4`` too; their moments are made so.  Checkpoints keep the JAX
 package's ``.npz`` layout (``step``, ``occupancy``, ``albedo`` and the optax
 state's leaves as ``opt_i`` in ``jax.tree_util.tree_flatten`` order:
 count, mu of each field, nu of each field), so a JAX checkpoint resumes here
@@ -27,87 +25,22 @@ import torch
 
 from ..kernels.adam import adam_update
 from ..utils.profiling import annotate
+from .field4 import field4_of, field4_views
 
 __all__ = ["InverseRenderer", "ClippedAdam", "make_adam", "adam_step",
-           "adam_state_arrays", "load_adam_state", "tiled_base"]
-
-
-def _merged(t: torch.Tensor) -> list[tuple[int, int]]:
-    """``t``'s (size, stride) pairs with its size-1 dims dropped and each
-    dim merged into the one before it wherever the two read as one."""
-    dims: list[tuple[int, int]] = []
-    for size, stride in zip(t.shape, t.stride()):
-        if size == 1:
-            continue
-        if dims and dims[-1][1] == stride * size:
-            dims[-1] = (dims[-1][0] * size, stride)
-        else:
-            dims.append((size, stride))
-    return dims
-
-
-def tiled_base(tensors):
-    """``(base, columns)`` where ``tensors`` tile one contiguous storage as
-    column blocks, else None.
-
-    ``base`` is the [R, W] view of the storage they share and
-    ``columns[i]`` the first column of tensor i: each tensor, read in its
-    own row-major order, is ``base[:, c:c + w]`` (w its numel over R), and
-    together they take each of the W columns once.  So
-    ``S[:, 0].view(A, 512)`` and ``S[:, 1:].view(A, 512, 3)`` of a
-    contiguous ``S`` [A*512, 4] give ``(S, [0, 1])``.  None for fewer than
-    two tensors, mixed dtypes or devices, other storages, gaps, overlaps
-    or transposed views."""
-    tensors = list(tensors)
-    if len(tensors) < 2:
-        return None
-    first = tensors[0]
-    blocks = []
-    for t in tensors:
-        if (t.dtype != first.dtype or t.device != first.device
-                or t.untyped_storage().data_ptr()
-                != first.untyped_storage().data_ptr()):
-            return None
-        dims = _merged(t)
-        if len(dims) == 1 and dims[0][1] > 1:
-            (rows, row_stride), width = dims[0], 1
-        elif len(dims) == 2 and dims[1][1] == 1:
-            (rows, row_stride), width = dims[0], dims[1][0]
-        else:
-            return None
-        blocks.append((t.storage_offset(), rows, row_stride, width))
-    start = min(b[0] for b in blocks)
-    rows, row_stride = blocks[0][1], blocks[0][2]
-    if any(b[1:3] != (rows, row_stride) for b in blocks):
-        return None
-    column = 0
-    for offset, _, _, width in sorted(blocks):
-        if offset - start != column:
-            return None
-        column += width
-    if column != row_stride:
-        return None
-    return (first.as_strided((rows, row_stride), (row_stride, 1), start),
-            [b[0] - start for b in blocks])
-
-
-def _view_like(base, tiled, t):
-    """The view of ``base`` that sits where ``t`` sits in ``tiled``'s base
-    (``base`` contiguous, of ``tiled``'s base's shape)."""
-    return base.as_strided(t.shape, t.stride(),
-                           base.storage_offset() + t.storage_offset()
-                           - tiled[0].storage_offset())
+           "adam_state_arrays", "load_adam_state"]
 
 
 class ClippedAdam(torch.optim.Optimizer):
     """Adam (``torch.optim.Adam``'s arithmetic, no weight decay) whose
     update clips each parameter to [0, 1], one call of
     :func:`~brickmap_tpu_torch.kernels.adam.adam_update` a parameter, or
-    one a group where the group's parameters, gradients and moments tile
-    one storage each in the same places (:func:`tiled_base`).  The moments
-    are made as zeros at a parameter's first step, in the parameters'
-    layout where they tile one storage; ``step`` is a float32 tensor on the
-    host, as ``torch.optim.Adam`` keeps it."""
+    one a group whose two parameters, their gradients and both moments are
+    each the views of one ``field4`` (:func:`~brickmap_tpu_torch.diff.
+    field4.field4_of`).  The moments are made as zeros at a parameter's
+    first step, as the views of one zero ``field4`` each for such a pair;
+    ``step`` is a float32 tensor on the host, as ``torch.optim.Adam``
+    keeps it."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999),
                  eps: float = 1e-8):
@@ -115,36 +48,33 @@ class ClippedAdam(torch.optim.Optimizer):
                                   "eps": eps})
 
     def _init_state(self, params) -> None:
-        """Step 0 and zero moments for each of ``params`` without state:
-        views of one zero storage each where those parameters tile one."""
+        """Step 0 and zero moments for each of ``params`` without state."""
         fresh = [p for p in params if not self.state[p]]
-        tiled = tiled_base(fresh)
-        if tiled is not None:
-            m, v = torch.zeros_like(tiled[0]), torch.zeros_like(tiled[0])
-        for p in fresh:
-            st = self.state[p]
-            st["step"] = torch.tensor(0.0, dtype=torch.float32)
-            for key, base in (("exp_avg", None if tiled is None else m),
-                              ("exp_avg_sq", None if tiled is None else v)):
-                st[key] = torch.zeros_like(
-                    p, memory_format=torch.preserve_format) \
-                    if base is None else _view_like(base, tiled, p)
+        field4 = field4_of(*fresh) if len(fresh) == 2 else None
 
-    def _tiled_args(self, params):
-        """``adam_update``'s tensors and step for one call over the
-        storages that ``params``, their gradients and both moments tile in
-        the same places, else None."""
+        def zeros():
+            if field4 is not None:
+                return field4_views(torch.zeros_like(field4))
+            return [torch.zeros_like(p, memory_format=torch.preserve_format)
+                    for p in fresh]
+
+        for p, m, v in zip(fresh, zeros(), zeros()):
+            self.state[p].update(step=torch.tensor(0.0, dtype=torch.float32),
+                                 exp_avg=m, exp_avg_sq=v)
+
+    def _field4_args(self, params):
+        """``adam_update``'s (p, g, m, v) as the ``field4`` of each pair
+        where ``params`` are one pair at one step, else None."""
+        if len(params) != 2:
+            return None
         states = [self.state[p] for p in params]
-        steps = {float(st["step"]) for st in states}
-        tiled = [tiled_base(ts) for ts in (
+        if float(states[0]["step"]) != float(states[1]["step"]):
+            return None
+        args = [field4_of(*pair) for pair in (
             params, [p.grad for p in params],
             [st["exp_avg"] for st in states],
             [st["exp_avg_sq"] for st in states])]
-        if len(steps) != 1 or any(
-                t is None or t[1] != tiled[0][1]
-                or t[0].shape != tiled[0][0].shape for t in tiled):
-            return None
-        return [t[0] for t in tiled], states
+        return None if any(a is None for a in args) else args
 
     @torch.no_grad()
     def step(self) -> None:
@@ -152,12 +82,11 @@ class ClippedAdam(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             self._init_state(params)
             hp = (group["lr"], group["betas"], group["eps"])
-            tiled = self._tiled_args(params)
-            if tiled is not None:
-                (p, g, m, v), states = tiled
-                for st in states:
-                    st["step"] += 1
-                adam_update(p, g, m, v, int(states[0]["step"]), *hp)
+            args = self._field4_args(params)
+            if args is not None:
+                for p in params:
+                    self.state[p]["step"] += 1
+                adam_update(*args, int(self.state[params[0]]["step"]), *hp)
                 continue
             for p in params:
                 st = self.state[p]
@@ -200,8 +129,7 @@ def adam_state_arrays(opt: ClippedAdam, params) -> list[np.ndarray]:
 def load_adam_state(opt: ClippedAdam, params, leaves) -> None:
     """Inverse of :func:`adam_state_arrays`: the moments are copied into
     the parameters' moments in place (made first where a parameter has
-    none), so that parameters tiling one storage keep stepping it in one
-    call."""
+    none), so that a ``field4`` pair keeps stepping in one call."""
     k = len(params)
     count = int(np.asarray(leaves[0]))
     opt._init_state(params)

@@ -27,12 +27,12 @@ at K = 8).  The voxel-granular replay (``row_replay=False``, autograd
 through :class:`_CompositeCore`) is the oracle the row replay is held
 against.
 
-Fields that are column views of one contiguous ``field4`` (occupancy
-``S[:, 0]``, albedo ``S[:, 1:]``, as ``app/benchmark.py::active_fields``
-makes them) are replayed from ``S`` itself, with no copy, and their
-gradients come back as the same views of the one ``dfield``, scaled in
-place; any other fields are packed into a new ``field4`` and get
-contiguous gradients.
+The fields' one layout is ``field4`` (``diff/field4.py``): occupancy and
+albedo are its column views ``S[:, 0]`` and ``S[:, 1:]``, as every maker of
+sparse fields in the program returns them.  The replay reads ``S`` itself,
+with no copy, and the gradients come back as the same views of the one
+``dfield``, scaled in place.  Fields from outside the program are packed
+into a new ``field4`` by a cat.
 
 Left out of the JAX module: the ``traced`` branches and ``_scan_grad_acc``
 (they serve ``jit`` and ``shard_map``) and the bucket rounding of the live
@@ -53,7 +53,7 @@ from ..kernels.replay import composite_sse, segment_geom
 from ..ops.replay import ray_sse_plain
 from ..ops.replay import segment_visits as _segment_geom
 from ..utils.profiling import annotate
-from .optim import tiled_base
+from .field4 import field4_of, field4_views, new_fields
 
 __all__ = ["cell_pool_map", "pool_fields_from_bitmask", "composite_sparse",
            "l2_loss_and_grads_sparse"]
@@ -84,12 +84,15 @@ def cell_pool_map(scene, grid: GridConfig) -> torch.Tensor:
 
 def pool_fields_from_bitmask(scene):
     """Initial (occupancy [P,512], albedo [P,512,3]) float32 from the hard
-    bitmask, on the scene's device: the binarised start whose render equals
-    the hard renderer.  Voxel v = x + 8y + 64z, the raveled (z, y, x)."""
+    bitmask, on the scene's device, as the views of one new ``field4``:
+    the binarised start whose render equals the hard renderer, albedo 1.
+    Voxel v = x + 8y + 64z, the raveled (z, y, x)."""
     words = scene.pool_words
     p = words.shape[0]
-    occ = bits.dense_from_brick_words(words).reshape(p, 512).to(_F32)
-    return occ, torch.ones((p, 512, 3), dtype=_F32, device=words.device)
+    occ, alb = new_fields(p, words.device)
+    occ.copy_(bits.dense_from_brick_words(words).reshape(p, 512))
+    alb.fill_(1.0)
+    return occ, alb
 
 
 def _segment_gidx(oc, dc, cells, nds, ncodes, enorm, cellmap,
@@ -359,51 +362,26 @@ def _sky_sse(bg, tgt, n_run: int):
 
 
 def _pack_field(occupancy, albedo):
-    """(occ [P,512], alb [P,512,3]) -> the voxel-interleaved [P*512, 4]
-    (one 16-byte row per voxel: occupancy, r, g, b).
-
-    Where the two fields are the columns 0 and 1-3 of one contiguous
-    float32 [P*512, 4] (and need no autograd), that storage itself, with
-    no launch; else a new tensor, by ``torch.cat``.  ``_pack_field.shared``
-    counts the calls that returned the storage, ``_pack_field.cats`` those
-    that concatenated."""
-    tiled = tiled_base((occupancy, albedo))
-    if (tiled is not None and tiled[1] == [0, 1]
-            and tiled[0].shape[1] == 4 and occupancy.dtype == _F32
-            and not (torch.is_grad_enabled()
-                     and (occupancy.requires_grad or albedo.requires_grad))):
-        _pack_field.shared += 1
-        return tiled[0]
-    _pack_field.cats += 1
+    """(occ [P,512], alb [P,512,3]) -> the ``field4`` [P*512, 4] they are
+    the views of, with no launch, where they need no autograd; else a new
+    one by ``torch.cat``: fields from outside the program, and autograd
+    through :func:`composite_sparse`, whose ``extract_field`` needs a graph
+    back to both fields."""
+    field = field4_of(occupancy, albedo)
+    if field is not None and not (
+            torch.is_grad_enabled()
+            and (occupancy.requires_grad or albedo.requires_grad)):
+        return field
     return torch.cat([occupancy.reshape(-1, 1), albedo.reshape(-1, 3)], dim=1)
 
 
-_pack_field.shared = 0
-_pack_field.cats = 0
-
-
-def _inv(denom: int, like):
-    return torch.tensor(1.0 / denom, dtype=_F32, device=like.device)
-
-
-def _finalize(sse, dfield, denom: int, pshape):
+def _finalize(sse, dfield, denom: int):
     """(loss, (d_occupancy, d_albedo)): ``sse`` and ``dfield`` [P*512, 4]
-    times the float32 ``1/denom``, the gradients as contiguous copies."""
-    inv = _inv(denom, sse)
-    docc = (dfield[:, 0] * inv).reshape(pshape)
-    dalb = (dfield[:, 1:] * inv).reshape(*pshape, 3)
-    return sse * inv, (docc, dalb)
-
-
-def _finalize_views(sse, dfield, denom: int, pshape):
-    """:func:`_finalize` with ``dfield`` scaled in place (one pass) and the
-    gradients its column views: the layout of fields that are views of one
-    ``field4``.  Each element is the same product by the same float32 as
-    in :func:`_finalize`'s copies."""
-    inv = _inv(denom, sse)
+    times the float32 ``1/denom``, ``dfield`` in place (one pass), the
+    gradients its :func:`~brickmap_tpu_torch.diff.field4.field4_views`."""
+    inv = torch.tensor(1.0 / denom, dtype=_F32, device=sse.device)
     dfield.mul_(inv)
-    return sse * inv, (dfield[:, 0].view(pshape),
-                       dfield[:, 1:].view(*pshape, 3))
+    return sse * inv, field4_views(dfield)
 
 
 @torch.no_grad()
@@ -419,7 +397,8 @@ def l2_loss_and_grads_sparse(origin, direction, scene, cellmap, occupancy,
     are recorded against; ``cellmap`` maps its cells to rows of
     ``occupancy [P,512]`` / ``albedo [P,512,3]``.  Returns
     ``(loss, (d_occupancy, d_albedo))``, loss = mean squared error over the
-    N x 3 pixel values.
+    N x 3 pixel values, the gradients the views of one ``dfield``
+    [P*512, 4] (``diff/field4.py``).
 
     ``seg_cache``: optional dict owned by the caller.  The record and both
     sorts depend only on (rays, targets, scene geometry); a loop over the
@@ -433,7 +412,6 @@ def l2_loss_and_grads_sparse(origin, direction, scene, cellmap, occupancy,
     """
     with annotate("bm.sparse.step"):
         n = origin.shape[0]
-        pshape = occupancy.shape
         cache_key = (id(origin), id(direction), id(background), id(target))
         key_arrays = (origin, direction, background, target)
         use_cache = (row_replay and seg_cache is not None
@@ -448,10 +426,6 @@ def l2_loss_and_grads_sparse(origin, direction, scene, cellmap, occupancy,
 
         with annotate("bm.sparse.pack_field"):
             field = _pack_field(occupancy, albedo)
-        # The gradients take the fields' layout: views of one dfield where
-        # the fields are views of this field4.
-        finalize = _finalize_views \
-            if field.data_ptr() == occupancy.data_ptr() else _finalize
         if row_replay:
             if use_cache:
                 geo, n_live = seg_cache["geo"], seg_cache["n_live"]
@@ -469,9 +443,8 @@ def l2_loss_and_grads_sparse(origin, direction, scene, cellmap, occupancy,
                 seg_cache["key_arrays"] = key_arrays
             if n_live == 0:
                 # All-miss frame: the sky SSE covers every ray.
-                return finalize(_sky_sse(geo[6], geo[7], 0),
-                                torch.zeros_like(field), denom=n * 3,
-                                pshape=pshape)
+                return _finalize(_sky_sse(geo[6], geo[7], 0),
+                                 torch.zeros_like(field), denom=n * 3)
             sse_sky = _sky_sse(geo[6], geo[7], n_live)
             sse, dfield = _row_scan_grads(
                 geo[0][:n_live], geo[1][:n_live], geo[2][:n_live],
@@ -479,8 +452,7 @@ def l2_loss_and_grads_sparse(origin, direction, scene, cellmap, occupancy,
                 field, geo[6][:n_live], geo[7][:n_live], grid, k_segments,
                 chunk=chunkv)
             with annotate("bm.sparse.finalize"):
-                return finalize(sse + sse_sky, dfield, denom=n * 3,
-                                pshape=pshape)
+                return _finalize(sse + sse_sky, dfield, denom=n * 3)
 
         sse = torch.zeros((), dtype=_F32, device=field.device)
         dfield = torch.zeros_like(field)
@@ -491,4 +463,4 @@ def l2_loss_and_grads_sparse(origin, direction, scene, cellmap, occupancy,
                 segs["nd"][sl], segs["ncode"][sl], segs["entry_normal"][sl],
                 cellmap, sse, dfield, field, background[sl], target[sl],
                 grid, k_segments)
-        return finalize(sse, dfield, denom=n * 3, pshape=pshape)
+        return _finalize(sse, dfield, denom=n * 3)

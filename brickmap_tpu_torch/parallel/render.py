@@ -11,9 +11,9 @@ process that runs its shard eagerly and meets the others in collectives:
   rank returns the whole frame, and the ray counts ``all_reduce``d.
 * **Inverse** (:func:`inverse_train_step`, :func:`inverse_train_step_sparse`):
   each rank takes the loss and gradients of its ray shard, then their mean
-  over the group (``all_reduce`` SUM / d, JAX's ``pmean``); gradients that
-  are views of one storage (fields made by ``app/benchmark.py::
-  active_fields``) are reduced as that storage, in place.
+  over the group (``all_reduce`` SUM / d, JAX's ``pmean``); the sparse
+  step's gradients, the views of one ``field4`` (``diff/field4.py``, the
+  sparse fields' one layout), are reduced as that ``field4``, in place.
 
 Backends: gloo for CPU tensors, NCCL for CUDA tensors
 (:func:`brickmap_tpu_torch.app.scaling.init_distributed` picks it from the
@@ -30,7 +30,7 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
 from ..config import BrickmapConfig, MeshConfig
-from ..diff.optim import tiled_base
+from ..diff.field4 import field4_of
 from ..diff.render import l2_loss_and_grads
 from ..diff.sparse import l2_loss_and_grads_sparse
 from ..render.pathtrace import wave_for_indices
@@ -123,18 +123,17 @@ def _all_gather(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 
 def _pmean_(mesh: Mesh, *tensors) -> None:
     """Replace each tensor by its mean over the mesh, in place.  The
-    non-contiguous ones must tile one contiguous storage together (the
-    sparse step's gradients of fields that are views of one ``field4``),
-    which is reduced once; else this raises, since a strided tensor would
-    be reduced in a copy."""
+    non-contiguous ones must be the two views of one ``field4`` (the sparse
+    step's gradients), which is reduced once; else this raises, since a
+    strided tensor would be reduced in a copy."""
     flats = [t.view(-1) for t in tensors if t.is_contiguous()]
     strided = [t for t in tensors if not t.is_contiguous()]
     if strided:
-        tiled = tiled_base(strided)
-        if tiled is None:
-            raise ValueError("_pmean_: non-contiguous tensors that do not "
-                             "tile one contiguous storage")
-        flats.append(tiled[0].view(-1))
+        field4 = field4_of(*strided) if len(strided) == 2 else None
+        if field4 is None:
+            raise ValueError("_pmean_: non-contiguous tensors that are not "
+                             "the views of one field4")
+        flats.append(field4.view(-1))
     for f in flats:
         dist.all_reduce(f, group=mesh.group)
         f.div_(mesh.size)

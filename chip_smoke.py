@@ -1500,6 +1500,7 @@ def main() -> int:
 
     # ------------------------------------------------------------------
     from brickmap_tpu_torch.diff import optim as doptim, sparse as dsparse
+    from brickmap_tpu_torch.diff.field4 import field4_of
     from brickmap_tpu_torch.kernels import adam as kadam
     from brickmap_tpu_torch.kernels import extract as kext, record as krec
     from brickmap_tpu_torch.kernels import replay as krep
@@ -1604,8 +1605,9 @@ def main() -> int:
 
         # B4f/B4b on the terrain's own fields at the inverse rays' segments.
         occ6, alb6 = dsparse.pool_fields_from_bitmask(full)
-        alb6 = alb6 * torch.rand(alb6.shape, generator=gen, device=dev)
-        field6 = dsparse._pack_field(occ6 * 0.8, alb6)
+        occ6.mul_(0.8)
+        alb6.mul_(torch.rand(alb6.shape, generator=gen, device=dev))
+        field6 = field4_of(occ6, alb6)
         segs = krec.record_segments(*inv_rays, full, grid6, k_segments=8)
         slots6, lin6, mask6 = dsparse._segment_geom(
             segs["o_cells"], inv_rays[1], segs["cells"], segs["nd"],
@@ -1761,16 +1763,16 @@ def main() -> int:
             fail(f"the step's loss ({loss_k!r} vs {loss_p!r}) or gradients "
                  f"({grad_errs}) differ from the plain versions'")
 
-        # The fields as the benchmark keeps them (views of one field4)
-        # against contiguous copies of them: one cached step on each (the
-        # interleaved one replays from the storage and scales its dfield in
-        # place, the contiguous one cats a field4 and copies the scaled
-        # gradients), each step's peak allocation over what was allocated
-        # before it; then one Adam step on each from zero moments, both
-        # with the interleaved step's gradients: A1 over the storage in one
-        # launch against A1 a field, equal bit for bit.
+        # The fields as the program makes them (views of one field4)
+        # against contiguous copies of them, as fields from outside the
+        # program: one cached step on each (the first replays from the
+        # storage, the second from a cat; both scale their dfield in place
+        # and return its views), each step's peak allocation over what was
+        # allocated before it; then one Adam step on each from zero
+        # moments, both with the interleaved step's gradients: A1 over the
+        # field4 in one launch against A1 a field, equal bit for bit.
         occ_i, alb_i = frame["occupancy"], frame["albedo"]
-        if doptim.tiled_base((occ_i, alb_i)) is None:
+        if field4_of(occ_i, alb_i) is None:
             fail("the benchmark's fields are not views of one field4")
         occ_c, alb_c = occ_i.contiguous(), alb_i.contiguous()
 
@@ -1786,14 +1788,23 @@ def main() -> int:
             return (float(loss), grads, before,
                     torch.cuda.max_memory_allocated())
 
-        packed0 = (dsparse._pack_field.shared, dsparse._pack_field.cats)
-        loss_i, g_i, before_i, peak_i = cached_step(occ_i, alb_i)
-        loss_c, g_c, before_c, peak_c = cached_step(occ_c, alb_c)
-        packed = (dsparse._pack_field.shared - packed0[0],
-                  dsparse._pack_field.cats - packed0[1])
+        # Whether each _pack_field call returned the fields' own storage.
+        pack_field, packed = dsparse._pack_field, []
+
+        def pack_recorded(occ, alb):
+            field = pack_field(occ, alb)
+            packed.append(field.data_ptr() == occ.data_ptr())
+            return field
+
+        dsparse._pack_field = pack_recorded
+        try:
+            loss_i, g_i, before_i, peak_i = cached_step(occ_i, alb_i)
+            loss_c, g_c, before_c, peak_c = cached_step(occ_c, alb_c)
+        finally:
+            dsparse._pack_field = pack_field
         g_errs = [(float((a - b).abs().max()), float(b.abs().max()))
                   for a, b in zip(g_i, g_c)]
-        g_tiled = doptim.tiled_base(g_i) is not None
+        g_views = [field4_of(*g) is not None for g in (g_i, g_c)]
         del g_c
         lr_a = benchmark.SPARSE_LR
         opt_i = doptim.make_adam((occ_i, alb_i), lr_a)
@@ -1815,7 +1826,7 @@ def main() -> int:
         print(f"  interleaved fields against contiguous copies, cached "
               f"step: loss {loss_i!r} vs {loss_c!r}; max |dgrad| (max "
               f"|grad|) {g_errs}; gradients views of one dfield: "
-              f"{g_tiled}; _pack_field storage / cat {packed}; peak "
+              f"{g_views}; _pack_field returned the storage: {packed}; peak "
               f"allocated {peak_i} over {before_i} before it (+"
               f"{peak_i - before_i}) vs contiguous {peak_c} over "
               f"{before_c} (+{peak_c - before_c}) bytes; Adam step: A1 "
@@ -1824,11 +1835,11 @@ def main() -> int:
         del opt_i, opt_c, occ_c, alb_c, occ_i, alb_i
         torch.cuda.empty_cache()
         if loss_i != loss_c or any(e > 1e-6 * m for e, m in g_errs) \
-                or not g_tiled or packed != (1, 1):
+                or not all(g_views) or packed != [True, False]:
             fail(f"the step on the interleaved fields differs from the "
                  f"step on contiguous copies: loss {loss_i!r} vs "
-                 f"{loss_c!r}, gradients {g_errs}, views {g_tiled}, "
-                 f"_pack_field {packed}")
+                 f"{loss_c!r}, gradients {g_errs}, views {g_views}, "
+                 f"_pack_field returned the storage {packed}")
         if (n_i, n_c) != (1, 2) or not all(a1_same):
             fail(f"A1 on the fields' storage ({n_i} launches) against A1 "
                  f"a field ({n_c}): equal {a1_same}")

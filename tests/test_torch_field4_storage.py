@@ -1,12 +1,13 @@
-"""The sparse fields kept in one interleaved storage: ``app/benchmark.py::
-active_fields`` returns occupancy and albedo as the columns of one
-contiguous ``field4`` [A*512, 4]; the sparse step replays from that storage
-with no copy (``diff/sparse.py::_pack_field``) and returns the gradients as
-the same views of one ``dfield``, scaled in place; ``ClippedAdam`` steps the
-storage in one ``adam_update`` call, with its moments in the same layout;
-``parallel/render.py::_pmean_`` reduces the storage once.  Everything is
+"""The sparse fields' one layout, ``diff/field4.py``: every maker returns
+occupancy and albedo as the column views of one contiguous ``field4``
+[A*512, 4]; the sparse step replays from that storage with no copy
+(``diff/sparse.py::_pack_field``) and returns the gradients as the same
+views of one ``dfield``, scaled in place; ``ClippedAdam`` steps the
+``field4`` in one ``adam_update`` call, with its moments in the same
+layout; ``parallel/render.py::_pmean_`` reduces it once.  Everything is
 held bit for bit against contiguous copies of the same fields, which take
-the old path (a cat, contiguous gradients, one call a field).
+the path of fields from outside the program (a cat, one Adam call a
+field).
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from brickmap_tpu_torch.app import scaling
 from brickmap_tpu_torch.app.benchmark import active_fields
 from brickmap_tpu_torch.config import GridConfig
 from brickmap_tpu_torch.diff import optim, sparse
+from brickmap_tpu_torch.diff.field4 import field4_of, field4_views
 from brickmap_tpu_torch.kernels.record import record_segments
 from brickmap_tpu_torch.parallel import render as par
 
@@ -49,10 +51,10 @@ def problem():
 
 
 def interleaved_copy(occ, alb):
-    """Fresh fields with ``occ``/``alb``'s values, as active_fields lays
-    them out: the columns of one contiguous [N, 4]."""
+    """Fresh fields with ``occ``/``alb``'s values, as the program lays
+    them out: the views of one ``field4``."""
     base = torch.cat([occ.reshape(-1, 1), alb.reshape(-1, 3)], dim=1)
-    return base, base[:, 0].view(occ.shape), base[:, 1:].view(alb.shape)
+    return (base, *field4_views(base))
 
 
 @pytest.fixture
@@ -70,20 +72,36 @@ def adam_calls(monkeypatch):
     return calls
 
 
-def run_steps(problem, occ, alb, adam_calls, steps=3):
+@pytest.fixture
+def packs(monkeypatch):
+    """For each ``_pack_field`` call, whether it returned the fields' own
+    storage (True) or a new field4 (False)."""
+    shared = []
+    real = sparse._pack_field
+
+    def recorded(occ, alb):
+        field = real(occ, alb)
+        shared.append(field.data_ptr() == occ.data_ptr())
+        return field
+
+    monkeypatch.setattr(sparse, "_pack_field", recorded)
+    return shared
+
+
+def run_steps(problem, occ, alb, adam_calls, packs, steps=3):
     """``steps`` cached loss/gradient + Adam steps; per step (loss, grads,
-    params, moments) as copies, and the adam_update calls it made."""
+    params, moments) as copies, and the adam_update calls and
+    ``_pack_field`` results it made."""
     world, (o, d, bg, tgt), cellmap = problem[:3]
     params = (occ, alb)
     opt = optim.make_adam(params, LR)
     cache, out = {}, []
     for _ in range(steps):
-        shared, cats = sparse._pack_field.shared, sparse._pack_field.cats
+        del packs[:]
         loss, grads = sparse.l2_loss_and_grads_sparse(
             o, d, world, cellmap, occ, alb, bg, tgt, GRID, k_segments=8,
             seg_cache=cache)
-        packed = (sparse._pack_field.shared - shared,
-                  sparse._pack_field.cats - cats)
+        packed = list(packs)
         before = len(adam_calls)
         optim.adam_step(opt, params, grads)
         out.append({
@@ -95,54 +113,60 @@ def run_steps(problem, occ, alb, adam_calls, steps=3):
     return out, opt
 
 
-def test_active_fields_are_views_of_one_field4(problem):
-    occ, alb = problem[3], problem[4]
+def _active_fields(problem):
+    return problem[3], problem[4], 0.8, 0.6
+
+
+def _pool_fields_from_bitmask(problem):
+    return (*sparse.pool_fields_from_bitmask(problem[0]), 1.0, 1.0)
+
+
+@pytest.mark.parametrize("make", [_active_fields, _pool_fields_from_bitmask])
+def test_active_fields_are_views_of_one_field4(problem, make):
+    """Each maker of sparse fields in the program returns the views of one
+    new field4, with its values."""
+    occ, alb, occ_value, alb_value = make(problem)
     a = occ.shape[0]
     assert occ.shape == (a, 512) and alb.shape == (a, 512, 3)
     assert occ.stride() == (2048, 4) and alb.stride() == (2048, 4, 1)
-    base, cols = optim.tiled_base((occ, alb))
+    base = field4_of(occ, alb)
     assert base.shape == (a * 512, 4) and base.is_contiguous()
-    assert cols == [0, 1] and base.data_ptr() == occ.data_ptr()
-    assert bool((alb == np.float32(0.6)).all())
-    assert set(torch.unique(occ).tolist()) <= {0.0, np.float32(0.8)}
+    assert base.data_ptr() == occ.data_ptr()
+    assert bool((alb == np.float32(alb_value)).all())
+    assert set(torch.unique(occ).tolist()) == {0.0, np.float32(occ_value)}
 
 
-def test_interleaved_steps_equal_contiguous_steps(problem, adam_calls):
+def test_interleaved_steps_equal_contiguous_steps(problem, adam_calls,
+                                                  packs):
     """Three cached steps + Adam on the interleaved fields and on
     contiguous copies: loss, gradients, parameters and both moments equal
-    bit for bit at every step; one adam_update call a step against two."""
+    bit for bit at every step; the storage replayed against a cat; one
+    adam_update call a step against two; the gradients the views of one
+    dfield on both."""
     _, occ_i, alb_i = interleaved_copy(problem[3], problem[4])
     occ_c, alb_c = problem[3].contiguous().clone(), \
         problem[4].contiguous().clone()
     assert occ_c.is_contiguous() and alb_c.is_contiguous()
-    got, _ = run_steps(problem, occ_i, alb_i, adam_calls)
-    want, _ = run_steps(problem, occ_c, alb_c, adam_calls)
+    got, _ = run_steps(problem, occ_i, alb_i, adam_calls, packs)
+    want, _ = run_steps(problem, occ_c, alb_c, adam_calls, packs)
     for i, (a, b) in enumerate(zip(got, want)):
         assert torch.equal(a["loss"], b["loss"]), i
         for key in ("grads", "params", "moments"):
             for x, y in zip(a[key], b[key]):
                 assert x.shape == y.shape and torch.equal(x, y), (i, key)
         assert (a["calls"], b["calls"]) == (1, 2)
-        assert (a["packed"], b["packed"]) == ((1, 0), (0, 1))
-        # The gradients are views of one dfield only for the interleaved
-        # fields.
-        gi, gc = a["grad_views"], b["grad_views"]
-        assert not any(g.is_contiguous() for g in gi)
-        tiled = optim.tiled_base(gi)
-        assert tiled is not None and tiled[1] == [0, 1]
-        assert all(g.is_contiguous() for g in gc)
-        assert optim.tiled_base(gc) is None
+        assert (a["packed"], b["packed"]) == ([True], [False])
+        for grads in (a["grad_views"], b["grad_views"]):
+            assert not any(g.is_contiguous() for g in grads)
+            assert field4_of(*grads) is not None
     assert float(got[-1]["loss"]) < float(got[0]["loss"])
 
 
 def test_pack_field_returns_the_storage(problem):
     base, occ, alb = interleaved_copy(problem[3], problem[4])
-    shared, cats = sparse._pack_field.shared, sparse._pack_field.cats
     field = sparse._pack_field(occ, alb)
     assert field.data_ptr() == base.data_ptr()
     assert field.shape == base.shape and field.stride() == base.stride()
-    assert (sparse._pack_field.shared - shared,
-            sparse._pack_field.cats - cats) == (1, 0)
 
 
 def _two_bases(occ, alb):
@@ -175,10 +199,8 @@ def test_other_inputs_fall_back(problem, adam_calls, make):
     _pack_field cats, and ClippedAdam steps each field, with the same
     values as contiguous fields."""
     occ, alb = make(problem[3], problem[4])
-    shared, cats = sparse._pack_field.shared, sparse._pack_field.cats
+    assert field4_of(occ, alb) is None
     field = sparse._pack_field(occ, alb)
-    assert (sparse._pack_field.shared - shared,
-            sparse._pack_field.cats - cats) == (0, 1)
     assert field.is_contiguous() and field.data_ptr() != occ.data_ptr()
     assert torch.equal(field, torch.cat([occ.reshape(-1, 1),
                                          alb.reshape(-1, 3)], dim=1))
@@ -194,18 +216,48 @@ def test_other_inputs_fall_back(problem, adam_calls, make):
     assert all(torch.equal(a, b) for a, b in zip((occ, alb), ref))
 
 
-def test_tiled_base_cases():
-    s = torch.zeros((6, 4))
-    a, b = s[:, 0].view(2, 3), s[:, 1:].view(2, 3, 3)
-    assert optim.tiled_base((b, a))[1] == [1, 0]
-    assert optim.tiled_base((a,)) is None                  # one tensor
-    assert optim.tiled_base((a, s[:, 1:3])) is None        # a column short
-    assert optim.tiled_base((a, s[:, 0:3])) is None        # overlapping
-    assert optim.tiled_base((a, s[:, 1:].t())) is None     # transposed
-    assert optim.tiled_base((s[:3, 0], s[3:, 1:])) is None  # other rows
-    t = torch.zeros((6, 2))
-    tiled = optim.tiled_base((t[:, 1], t[:, 0]))
-    assert tiled[0].data_ptr() == t.data_ptr() and tiled[1] == [1, 0]
+def _columns(base, occ_cols, alb_cols, rows=(slice(None), slice(None))):
+    """``base[rows[0], occ_cols]`` and ``base[rows[1], alb_cols]`` as
+    [P, 512] and [P, 512, 3]."""
+    occ, alb = base[rows[0], occ_cols], base[rows[1], alb_cols]
+    return occ.view(-1, 512), alb.reshape(-1, 512, alb.shape[-1])
+
+
+# (occupancy, albedo) of a contiguous float32 [1024, 4], and whether they
+# are its field4 views.
+FIELD4_LAYOUTS = {
+    "the pair": (lambda s: field4_views(s), True),
+    "one brick": (lambda s: field4_views(s[:512]), True),
+    "the pair swapped": (lambda s: field4_views(s)[::-1], False),
+    "a column short": (lambda s: _columns(s, 0, slice(1, 3)), False),
+    "overlapping columns": (lambda s: _columns(s, 0, slice(0, 3)), False),
+    "a wider base": (lambda s: _columns(torch.zeros((1024, 5)), 0,
+                                        slice(1, 4)), False),
+    "a transposed base": (lambda s: _columns(torch.zeros((4, 1024)).t(), 0,
+                                             slice(1, 4)), False),
+    "other rows": (lambda s: _columns(s, 0, slice(1, 4),
+                                      (slice(0, 512), slice(512, 1024))),
+                   False),
+    "separate storages": (lambda s: tuple(f.clone()
+                                          for f in field4_views(s)), False),
+    "float64": (lambda s: field4_views(s.double()), False),
+}
+
+
+@pytest.mark.parametrize("layout", list(FIELD4_LAYOUTS))
+def test_field4_of_cases(layout):
+    """field4_of names the field4 of exactly its two views, else None."""
+    s = torch.zeros((1024, 4))
+    make, is_pair = FIELD4_LAYOUTS[layout]
+    occ, alb = make(s)
+    got = field4_of(occ, alb)
+    if not is_pair:
+        assert got is None
+        return
+    assert got.data_ptr() == s.data_ptr() and got.is_contiguous()
+    assert got.shape == (occ.shape[0] * 512, 4)
+    assert all(torch.equal(x, y) for x, y in zip(field4_views(got),
+                                                 (occ, alb)))
 
 
 def test_adam_state_round_trip_keeps_the_layout(problem, adam_calls):
@@ -230,8 +282,7 @@ def test_adam_state_round_trip_keeps_the_layout(problem, adam_calls):
     opt_b = optim.make_adam(b, LR)
     optim.load_adam_state(opt_b, b, leaves)
     for key in ("exp_avg", "exp_avg_sq"):
-        tiled = optim.tiled_base([opt_b.state[p][key] for p in b])
-        assert tiled is not None and tiled[1] == [0, 1]
+        assert field4_of(*[opt_b.state[p][key] for p in b]) is not None
     for x, y in zip(optim.adam_state_arrays(opt_b, b), leaves):
         np.testing.assert_array_equal(x, y)
     # Loading into an optimizer that has stepped copies into its moments.
