@@ -32,6 +32,7 @@ again: a viewer that reopens its world or jumps to another region.  Spans
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,7 +43,8 @@ from .config import BRICK_DIST_MASK, BRICK_FLAG_BITS, BRICK_INDEX_BITS, \
 from .scene import TorchScene
 from .utils.profiling import annotate
 
-__all__ = ["StreamingScene", "compact_requests", "pull_requests"]
+__all__ = ["RequestRows", "StreamingScene", "compact_requests",
+           "pull_requests"]
 
 
 def compact_requests(mask: torch.Tensor, pos: torch.Tensor, cap: int):
@@ -69,8 +71,56 @@ def compact_requests(mask: torch.Tensor, pos: torch.Tensor, cap: int):
     return total, rows.to(torch.int32), valid
 
 
-def pull_requests(req: dict, queue_size: int = 1024) -> list:
-    """The (x, y, z) brick coordinates a wave requested, as a host list.
+class RequestRows(Sequence):
+    """A wave's pulled requests as int32 [n, 3] rows, read-only, with the
+    contract of a list of (x, y, z) tuples of Python ints: ``len``, an
+    index gives a tuple (a slice a list of them), iteration gives tuples
+    built lazily, ``==`` compares as a list of tuples, and
+    ``np.asarray`` gives the rows themselves, with no copy.  The rows make
+    no Python object a lane until a caller iterates or indexes them.
+    """
+
+    __slots__ = ("_rows",)
+    __hash__ = None
+
+    def __init__(self, rows: np.ndarray):
+        rows = rows.reshape(-1, 3)
+        rows.flags.writeable = False
+        self._rows = rows
+
+    def __len__(self) -> int:
+        return self._rows.shape[0]
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return list(map(tuple, self._rows[i].tolist()))
+        return tuple(self._rows[i].tolist())
+
+    def __iter__(self):
+        return map(tuple, self._rows.tolist())
+
+    def __eq__(self, other):
+        if not isinstance(other, Sequence):
+            return NotImplemented
+        return list(self) == list(other)
+
+    def __array__(self, dtype=None, copy=None):
+        rows = self._rows
+        if dtype is None or np.dtype(dtype) == rows.dtype:
+            return rows.copy() if copy else rows
+        if copy is False:
+            raise ValueError(f"the rows are {rows.dtype}: {np.dtype(dtype)} "
+                             "needs a copy")
+        return rows.astype(dtype)
+
+    def __repr__(self) -> str:
+        return f"RequestRows({self._rows.tolist()!r})"
+
+
+def pull_requests(req: dict, queue_size: int = 1024) -> RequestRows:
+    """The (x, y, z) brick coordinates a wave requested, as the host's
+    int32 rows in lane order (:class:`RequestRows`, which reads like a list
+    of tuples and hands :meth:`StreamingScene.plan` the array itself).
 
     Takes the first ``4 * queue_size`` requesting lanes in lane order (the
     JAX package's cap on raw lanes, ahead of the manager's dedupe), with one
@@ -83,8 +133,7 @@ def pull_requests(req: dict, queue_size: int = 1024) -> list:
             1), rows.reshape(-1)])
         with annotate("bm.sync.pull_requests"):
             packed = packed.cpu().numpy()
-        got = packed[1:1 + 3 * int(packed[0])].reshape(-1, 3)
-        return [tuple(r) for r in got.tolist()]
+        return RequestRows(packed[1:1 + 3 * int(packed[0])])
 
 
 def _u32(mask: int) -> np.uint32:
@@ -123,10 +172,13 @@ class StreamingScene:
     :meth:`reset`, which may replace the pool tensor.
 
     Totals, host integers: ``total_requests`` (request lanes handed to
-    :meth:`plan`), ``total_uploaded``, ``total_dropped`` (distinct unloaded
-    bricks beyond the cap) and ``total_rebases`` (batches whose segment
-    growth re-based the pool) count since the last :meth:`reset`;
-    ``total_resets`` counts the resets.
+    :meth:`plan`), ``total_listed`` (those of them :meth:`plan` had to
+    build from Python objects, not take as an array: 0 where every batch
+    comes from :func:`pull_requests`), ``total_uploaded``,
+    ``total_dropped`` (distinct unloaded bricks beyond the cap) and
+    ``total_rebases`` (batches whose segment growth re-based the pool)
+    count since the last :meth:`reset`; ``total_resets`` counts the resets.
+    ``total_listed`` is no part of :meth:`state`.
     """
 
     def __init__(self, truth: TorchScene, grid: GridConfig,
@@ -164,6 +216,7 @@ class StreamingScene:
         self._rebase()
         self._loaded = []   # the cells each batch loaded, int32 arrays
         self.total_requests = 0
+        self.total_listed = 0
         self.total_uploaded = 0
         self.total_dropped = 0
         self.total_rebases = 0
@@ -229,8 +282,9 @@ class StreamingScene:
     def process_requests(self, requests) -> int:
         """Service up to ``queue_size`` brick requests; returns uploads done.
 
-        ``requests``: (x, y, z) brick coordinates in request order (from
-        :func:`pull_requests`).  Duplicates, resident and empty bricks are
+        ``requests``: (x, y, z) brick coordinates in request order: the
+        rows of :func:`pull_requests`, any array of [n, 3], or an iterable
+        of triples.  Duplicates, resident and empty bricks are
         ignored; distinct bricks beyond the cap are dropped and counted in
         ``total_dropped`` (later waves request them again).
         """
@@ -244,7 +298,11 @@ class StreamingScene:
         assignment, segment growth and the payloads from the truth.  Updates
         the host bookkeeping; :meth:`install` must follow with the batch."""
         with annotate("bm.stream.plan"):
-            req = np.asarray(list(requests), np.int64).reshape(-1, 3)
+            if hasattr(requests, "__array__"):
+                req = np.asarray(requests, np.int64).reshape(-1, 3)
+            else:
+                req = np.asarray(list(requests), np.int64).reshape(-1, 3)
+                self.total_listed += req.shape[0]
             self.total_requests += req.shape[0]
             cz, cy, cx = self._iv.shape
             if ((req < 0) | (req >= np.array([cx, cy, cz]))).any():
