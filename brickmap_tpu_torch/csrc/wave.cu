@@ -25,6 +25,11 @@
 //                          exhausted rays re-traced with the escalated budget,
 //                          every pass of a ray in one thread (W2's clip, then
 //                          B2's walk, traverse_walk.inc).
+//   W5 blit_kernel         render/pathtrace.py::tonemap (:52) with
+//                          utils/image.py::to_uint8 (:14): the film as 8
+//                          bits a channel (the reference's
+//                          blit_onto_framebuffer, kernel.cu:357-362), one
+//                          thread a pixel, 16 B read and 3 B written.
 // The plain versions are brickmap_tpu_torch/ops/wave.py; each kernel
 // rounds every operation as that torch code does on the same device.
 //
@@ -961,6 +966,29 @@ shade_kernel(int n, int bounce, int max_bounces, int final_pass,
   add_counts(counters, n_traced, n_exhausted);
 }
 
+// torch's clamp of a float tensor to a scalar bound: NaN stays NaN.
+__device__ __forceinline__ float clamp_lo(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+
+// W5: count-normalise, clamp at 0, pow 1/2.2, clamp to [0, 1], x 255 + 0.5
+// and truncate, each step one rounding as torch's op (the scalars as torch
+// takes a Python float for a float32 tensor; `** (1 / 2.2)` is powf).
+__global__ void __launch_bounds__(kThreads)
+    blit_kernel(int n, const float* __restrict__ rgb,
+                const float* __restrict__ count,
+                unsigned char* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const float c = clamp_lo(count[i], static_cast<float>(1e-8));
+  for (int k = 0; k < 3; ++k) {
+    float v = clamp_lo(rgb[3 * i + k] / c, 0.0f);
+    v = powf(v, static_cast<float>(1.0 / 2.2));
+    v = isnan(v) ? v : fminf(fmaxf(v, 0.0f), 1.0f);
+    out[3 * i + k] = static_cast<unsigned char>(v * 255.0f + 0.5f);
+  }
+}
+
 // Blocks of `kernel` (`threads` threads each) resident at once on the
 // current device: its SMs times the occupancy calculator's blocks an SM (at
 // most `per_sm_cap`), kept per device in `cache`.
@@ -1091,6 +1119,15 @@ extern "C" int wave_shade_launch(
         n, bounce, max_bounces, final_pass, rays_o, rays_d, live, pos, res,
         sh_color, accum, req_mask, req_pos, counters, u, sun_dir, sky, eps2,
         out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wave_blit_launch(int n, const float* rgb, const float* count,
+                                unsigned char* out, void* stream) {
+  if (n > 0) {
+    blit_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(n, rgb, count, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,9 +5,9 @@ timed ones (``traverse.trace``, ``record.record_segments``,
 ``extract.extract_fwd``, which reads the visited voxels from the pool
 fields, ``extract.extract_bwd``, which adds their cotangents into the
 field gradient in place, the wave's ``wave.primary``,
-``wave.gather_clip`` and ``wave.shade``, and ``adam.adam_update``, the
-optimizer's update with its clip) also have an event
-hook: while ``<wrapper>.events`` is a list (it is ``None`` by default), each
+``wave.gather_clip``, ``wave.shade`` and ``wave.blit``, and
+``adam.adam_update``, the optimizer's update with its clip) also have an
+event hook: while ``<wrapper>.events`` is a list (it is ``None`` by default), each
 launch appends the (start, end) CUDA events recorded around it on the
 current stream, the kernel's own time without the wrapper's torch work.
 """

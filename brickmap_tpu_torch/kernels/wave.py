@@ -1,4 +1,5 @@
-"""Kernels W0-W4: the sample wave's stages around the traversal.
+"""Kernels W0-W5: the sample wave's stages around the traversal, and the
+film shown as 8 bits.
 
 The JAX package leaves these stages to XLA, which fuses each jitted stage
 (``brickmap_tpu/render/pathtrace.py``) into a few device programs; the port
@@ -21,7 +22,9 @@ lane, ray or row:
   wave's outputs;
 * :func:`rescue` (W4, ``rescue_kernel``): ``_cond_rescue``, the exhausted
   rays re-traced with the escalated budget, all passes of a ray in one
-  thread, their results written back at their rows.
+  thread, their results written back at their rows;
+* :func:`blit` (W5, ``blit_kernel``): ``tonemap`` with ``to_uint8``, the
+  film as the 8-bit frame a viewer shows, one thread a pixel.
 
 W0, W2 and W4 launch at most the blocks resident at once, so a small count
 costs one wave of blocks, not a grid over the capacity.  W2's blocks walk
@@ -52,12 +55,12 @@ import torch
 
 from ..config import BrickmapConfig, GridConfig, SunSkyConfig
 from ..ops import sunsky as sunsky_mod
-from ..ops.wave import compact_plain, gather_clip_plain, primary_plain, \
-    rescue_plain, shade_plain
+from ..ops.wave import blit_plain, compact_plain, gather_clip_plain, \
+    primary_plain, rescue_plain, shade_plain
 from . import build, hooked
 from . import traverse as ktrav
 
-__all__ = ["compact", "primary", "gather_clip", "shade", "rescue",
+__all__ = ["compact", "primary", "gather_clip", "shade", "rescue", "blit",
            "sky_constants", "scratch", "scratch_words", "compact_args",
            "primary_args", "gather_clip_args", "shade_args", "rescue_args"]
 
@@ -79,9 +82,10 @@ def _bind(lib) -> None:
     lib.wave_shade_launch.argtypes = (
         [i] * 4 + [p] * 4 + [p] * 6 + [p] * 5 + [p] * 4 + [p, p, f]
         + [p] * 5 + [p])
+    lib.wave_blit_launch.argtypes = [i, p, p, p, p]
     for fn in (lib.wave_compact_launch, lib.wave_primary_launch,
                lib.wave_gather_clip_launch, lib.wave_shade_launch,
-               lib.wave_rescue_launch):
+               lib.wave_rescue_launch, lib.wave_blit_launch):
         fn.restype = i
 
 
@@ -487,3 +491,39 @@ def rescue(res: dict, rows, count, lanes, rays_o, rays_d, scene, cam_brick,
 
 rescue.launches = 0
 rescue.events = None
+
+
+# ---- W5 -------------------------------------------------------------------
+
+def blit(rgb, count, width: int, height: int) -> torch.Tensor:
+    """W5: the film's sums ``rgb`` [N, 3] over its counts ``count`` [N]
+    (float32, N = ``width * height``, row-major pixels) as the 8-bit frame,
+    uint8 [height, width, 3] on their device: ``tonemap`` then
+    ``to_uint8``, bit for bit as :func:`~brickmap_tpu_torch.ops.wave.
+    blit_plain` computes it on the same device.  One launch."""
+    dev = rgb.device
+    if dev.type == "cpu":
+        return blit_plain(rgb, count, width, height)
+    _device(dev, "blit")
+    n = width * height
+    for name, a, shape in (("rgb", rgb, (n, 3)), ("count", count, (n,))):
+        if a.device != dev or a.dtype != _F32 or tuple(a.shape) != shape \
+                or not a.is_contiguous():
+            raise ValueError(f"blit: {name} must be contiguous float32 "
+                             f"{shape} on {dev}")
+    if n > build.MAX_RAYS:
+        raise ValueError(f"blit: at most {build.MAX_RAYS} pixels")
+    out = torch.empty((height, width, 3), dtype=torch.uint8, device=dev)
+    if n:
+        lib = build.load("wave", _bind)
+        with torch.cuda.device(dev):
+            status = hooked(blit, lib.wave_blit_launch, n, rgb.data_ptr(),
+                            count.data_ptr(), out.data_ptr(),
+                            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(status, "blit_kernel")
+        blit.launches += 1
+    return out
+
+
+blit.launches = 0
+blit.events = None

@@ -3,8 +3,9 @@ the traversal, and the wave's state.
 
 These are the stages the JAX package leaves to XLA (``_compact_trace``'s
 pack index, ``_primary_state``, the live-lane gather fused with
-``aabb_clip``, ``_shade_update`` and ``_final_accum_update``, and the
-rescue passes of ``_cond_rescue``, in ``brickmap_tpu/render/pathtrace.py``),
+``aabb_clip``, ``_shade_update`` and ``_final_accum_update``, the
+rescue passes of ``_cond_rescue``, in ``brickmap_tpu/render/pathtrace.py``,
+and ``tonemap`` quantised as ``utils/image.py::to_uint8`` does),
 written as the port's eager torch ops did them before the kernels
 (:mod:`brickmap_tpu_torch.kernels.wave`) replaced them on the card.  They
 run for CPU tensors, and ``chip_smoke.py`` holds the kernels against them
@@ -40,7 +41,8 @@ from . import sunsky as sunsky_mod
 from .traverse import aabb_clip, trace_clipped_rays
 
 __all__ = ["new_state", "compact_plain", "primary_plain", "gather_clip_plain",
-           "shade_plain", "rescue_plain", "RESULT_KEYS", "RESCUE_KEYS"]
+           "shade_plain", "rescue_plain", "blit_plain", "RESULT_KEYS",
+           "RESCUE_KEYS"]
 
 RESULT_KEYS = ("hit", "t", "normal", "request", "request_pos", "exhausted")
 RESCUE_KEYS = RESULT_KEYS + ("resume_t",)
@@ -254,3 +256,14 @@ def shade_plain(bounce: int, st: dict, res: dict, cone_u, hemi_u, sun_dir,
     st["live"][:n] = new_active
     st["live"][n:] = new_sh_active
     return None
+
+
+def blit_plain(rgb, count, width: int, height: int) -> torch.Tensor:
+    """W5's plain version: the film's sums ``rgb`` [N, 3] over its counts
+    ``count`` [N] as 8 bits a channel, uint8 [height, width, 3]: the
+    ``tonemap`` (count-normalise, clamp at 0, pow 1/2.2, clamp to [0, 1])
+    then ``to_uint8`` (x 255 + 0.5, truncated), in float32 throughout."""
+    c = torch.clamp(count[:, None], min=1e-8)
+    img = torch.clamp(rgb / c, min=0.0) ** (1.0 / 2.2)
+    img = torch.clamp(img, 0.0, 1.0)
+    return (img * 255.0 + 0.5).to(torch.uint8).reshape(height, width, 3)

@@ -44,7 +44,7 @@ from ..utils.profiling import annotate, count as keep_count
 from .sampling import draw_wave_uniforms
 
 __all__ = ["render_wave", "wave_for_indices", "render_frame", "film_init",
-           "film_add", "tonemap", "rescue_budget"]
+           "film_add", "tonemap", "present", "rescue_budget"]
 
 RESCUE_TOP_STEPS = 4096   # the escalated top-level budget (_rescue_cfg)
 RESCUE_PASSES = 4         # resume-from-t passes before a ray counts exhausted
@@ -66,6 +66,15 @@ def tonemap(film: dict, width: int, height: int) -> torch.Tensor:
     c = torch.clamp(film["count"][:, None], min=1e-8)
     img = torch.clamp(film["rgb"] / c, min=0.0) ** (1.0 / 2.2)
     return torch.clamp(img, 0.0, 1.0).reshape(height, width, 3)
+
+
+def present(film: dict, width: int, height: int) -> torch.Tensor:
+    """The film as the frame a viewer shows: uint8 [height, width, 3] on
+    the film's device, ``to_uint8(tonemap(film))`` (the reference's 8-bit
+    framebuffer, kernel.cu:357-362).  On the card one launch of W5
+    (:func:`~brickmap_tpu_torch.kernels.wave.blit`), so the host copies 3
+    bytes a pixel, not 12, and quantises nothing."""
+    return kwave.blit(film["rgb"], film["count"], width, height)
 
 
 def rescue_budget(cfg: BrickmapConfig) -> int:

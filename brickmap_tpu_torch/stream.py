@@ -175,10 +175,12 @@ class StreamingScene:
     :meth:`plan`), ``total_listed`` (those of them :meth:`plan` had to
     build from Python objects, not take as an array: 0 where every batch
     comes from :func:`pull_requests`), ``total_uploaded``,
-    ``total_dropped`` (distinct unloaded bricks beyond the cap) and
-    ``total_rebases`` (batches whose segment growth re-based the pool)
-    count since the last :meth:`reset`; ``total_resets`` counts the resets.
-    ``total_listed`` is no part of :meth:`state`.
+    ``total_dropped`` (distinct unloaded bricks beyond the cap),
+    ``total_rebases`` (batches whose segment growth re-based the pool) and
+    ``total_rebased_rows`` (the resident rows those re-bases moved) count
+    since the last :meth:`reset`; ``total_resets`` counts the resets.
+    ``total_listed`` and ``total_rebased_rows`` are no part of
+    :meth:`state`.
     """
 
     def __init__(self, truth: TorchScene, grid: GridConfig,
@@ -220,6 +222,7 @@ class StreamingScene:
         self.total_uploaded = 0
         self.total_dropped = 0
         self.total_rebases = 0
+        self.total_rebased_rows = 0
 
     def _empty_pool(self) -> torch.Tensor:
         return torch.zeros((self._padded_total(), self.grid.cell_members),
@@ -386,6 +389,7 @@ class StreamingScene:
             self._dev_pool = pool
             self._dev_base.copy_(torch.from_numpy(self.pool_base))
             self.total_rebases += 1
+            self.total_rebased_rows += n_kept
 
     # -- diagnostics --------------------------------------------------------
 

@@ -4,16 +4,20 @@ The port's copy of ``brickmap_tpu/utils/preview.py`` (standard library only).
 The reference presents frames in a GLFW window with an ImGui stats panel and
 a WASD/mouse fly camera (``main.cpp:26-190``, ``camera.cpp:3-46``); on a
 headless host the equivalent is a tiny dependency-free HTTP server: the
-render loop pushes each progressive frame (PNG bytes + stats), any browser
+render loop hands over each frame (the image as it is + stats), any browser
 pointed at the port sees a self-refreshing view, and key input in the page is
 POSTed back as camera deltas that the render loop applies between waves
 (resetting accumulation, kernel.cu:387-403).  Serving is decoupled from the
-render loop: a slow or absent viewer never blocks a wave.
+render loop: a frame is PNG-encoded only when a client fetches it, once for
+each frame handed over, on the server's thread.  A 1 spp frame is noise,
+which deflate barely shrinks: encoding one of 960 x 540 takes tens of ms of
+host time, several times a wave's, so the render loop never pays it, and a
+slow or absent viewer never blocks a wave.
 
 Routes:
 
 * ``/``           — HTML page: frame image + live stats + key capture.
-* ``/frame.png``  — latest progressive frame (no-cache).
+* ``/frame.png``  — latest frame, encoded at its first fetch (no-cache).
 * ``/stats.json`` — latest wave stats (wave index, Mrays/s, spp, ...).
 * ``POST /camera``— accumulated input deltas ``{"move":[f,r,u],
   "rot":[dyaw,dpitch]}`` (forward/right/up impulses, radians), answered
@@ -91,10 +95,13 @@ shift = 10x &#183; (click page first)</div>
 class PreviewServer:
     """Background HTTP server showing the latest pushed frame.
 
-    ``update(img, **stats)`` is called from the render loop with a float
-    [H, W, 3] image (or uint8); encoding happens on the caller's thread
-    (cheap vs a render wave), serving on daemon threads.  ``pop_camera()``
-    drains input deltas POSTed by the page since the last call.
+    ``update(img, **stats)`` is called from the render loop with a uint8
+    [H, W, 3] image (or float in [0, 1]) and keeps it as it is, not a copy:
+    hand over an array the caller no longer writes.  ``GET /frame.png``
+    encodes the latest image, once for each ``frame_seq``, on the serving
+    thread, and keeps the bytes for later fetches of the same frame.
+    Serving runs on daemon threads.  ``pop_camera()`` drains input deltas
+    POSTed by the page since the last call.
     """
 
     def __init__(self, port: int, host: str = "127.0.0.1"):
@@ -102,7 +109,9 @@ class PreviewServer:
 
         self._encode = encode_png
         self._lock = threading.Lock()
-        self._png = b""
+        self._encoding = threading.Lock()   # one encode of a frame at once
+        self._img = None
+        self._png = (0, b"")                # (frame_seq, PNG bytes)
         self._stats: dict = {"frame_seq": 0}
         self._cam = {"move": [0.0, 0.0, 0.0], "rot": [0.0, 0.0]}
         self._cam_dirty = False
@@ -114,8 +123,7 @@ class PreviewServer:
                 if path == "/":
                     body, ctype = _PAGE, "text/html"
                 elif path == "/frame.png":
-                    with outer._lock:
-                        body = outer._png
+                    body = outer._frame_png()
                     ctype = "image/png"
                     if not body:
                         self.send_response(404)
@@ -170,11 +178,25 @@ class PreviewServer:
         self._thread.start()
 
     def update(self, img, **stats) -> None:
-        png = self._encode(img)
+        """Keep ``img`` as the latest frame with its ``stats``; encodes
+        nothing."""
         with self._lock:
-            self._png = png
+            self._img = img
             seq = self._stats.get("frame_seq", 0) + 1
             self._stats = {**stats, "frame_seq": seq}
+
+    def _frame_png(self) -> bytes:
+        """The latest frame's PNG (b"" before the first), encoded at the
+        first fetch of its ``frame_seq`` and kept for the next."""
+        with self._encoding:
+            with self._lock:
+                img, seq = self._img, self._stats["frame_seq"]
+                if img is None or self._png[0] == seq:
+                    return self._png[1]
+            png = self._encode(img)
+            with self._lock:
+                self._png = (seq, png)
+            return png
 
     def pop_camera(self) -> dict | None:
         """Drain accumulated input deltas: ``{"move": [fwd, right, up],

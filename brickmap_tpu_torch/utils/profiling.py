@@ -18,7 +18,10 @@ bounce and one more of each for the final shadow trace), ``bm.sparse.step``
 ``bm.optim.adam_step`` (the update with its clip, one kernel on the
 card), and streaming's ``bm.stream.pull`` (the whole of ``pull_requests``),
 ``bm.stream.plan``, ``bm.stream.install`` (``.rebase`` inside it when a
-segment grows) and ``bm.stream.reset`` (residency back to cold);
+segment grows) and ``bm.stream.reset`` (residency back to cold), and the
+live viewer's ``bm.live.frame`` (``app/live.py``), which holds a frame's
+``bm.live.input`` (the fly camera's step), its wave and streaming spans
+and ``bm.live.present`` (the 8-bit frame to the host and the server);
 ``bm.sync.<site>`` marks a host read of a device value
 (``bm.sync.tier_read``, the cached step's one read, and
 ``bm.sync.pull_requests`` inside ``bm.stream.pull``), so that a device-idle

@@ -10,7 +10,7 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels (nvcc, all sources at once, rebuilt even where a
    build exists) and the native heightfield (g++); print the ptxas summary,
-   and fail if B1's, B2's, B3's, W0-W4's, R1-R2's or A1's build has a
+   and fail if B1's, B2's, B3's, W0-W5's, R1-R2's or A1's build has a
    stack frame or spills;
 3. kernel B1 (brick DDA) against its plain torch version, every output
    equal (``t`` included): 1M random rays at densities 0.12, 0.5 and 0.9,
@@ -133,9 +133,13 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    3 bounces, view 0's camera orbiting a point 300 voxels ahead of it; a
    client thread fetches ``/frame.png`` and ``/stats.json`` from the served
    page and posts one fly-camera move.  Three PNGs and ``frames`` 3, B2 and
-   W0-W4 in every wave, no plain version, 0 exhausted, the post applied
+   W0-W4 in every wave, W5 (the 8-bit present) once a wave and once a
+   frame's PNG, no plain version, 0 exhausted, the post applied
    once and followed by a film reset, and the trace file naming
-   ``traverse_kernel``.  Then one view-0 wave under ``torch.profiler``: its
+   ``traverse_kernel``.  Then W5 on the films of two view-0 waves at
+   960x540 (the live viewer's shape) and 1920x1080, equal to its plain
+   version bit for bit, timed alone beside its bound (19 B a pixel) with
+   its ptxas line.  Then one view-0 wave under ``torch.profiler``: its
    kernel launches, device-to-host (synchronising) and pageable
    host-to-device copies, the device operations by time and the device's
    idle share of the wave: at most 150 launches, no device-to-host copy
@@ -352,6 +356,20 @@ def ptxas_line(name: str) -> str:
     return "; ".join(line.split(":")[-1].strip()
                      for line in build.ptxas_summary.get(name, [])
                      if "spill" in line or "Used" in line)
+
+
+def entry_ptxas(name: str, entry: str) -> str:
+    """Registers, stack and spills of the kernel ``entry`` (a part of its
+    mangled name) in this run's build of ``name``."""
+    from brickmap_tpu_torch.kernels import build
+
+    out, inside = [], False
+    for line in build.ptxas_summary.get(name, []):
+        if "Compiling entry" in line:
+            inside = entry in line
+        elif inside and ("spill" in line or "Used" in line):
+            out.append(line.split(":")[-1].strip())
+    return "; ".join(out)
 
 
 def ptxas_clean(name: str) -> bool:
@@ -2569,7 +2587,7 @@ def main() -> int:
         del mgr, sc8, truth, rgb_s, cnt_s, req_s, rgb_r, cnt_r, req_r, u
 
     # ------------------------------------------------------------------
-    from brickmap_tpu_torch.app import cli
+    from brickmap_tpu_torch.app import cli, live as live_mod
     from brickmap_tpu_torch.utils import preview
 
     with phase("9 viewer: render --turntable 3 --spp 2 --serve 0 "
@@ -2635,7 +2653,7 @@ def main() -> int:
 
         events9, waves9 = [], []
         orig_wave, orig_init = pathtrace.render_wave, pathtrace.film_init
-        orig_apply = cli._apply_camera_input
+        orig_apply = live_mod._apply_camera_input
 
         def counted_wave9(*a, **k):
             before, w_before = ktrav.trace.launches, w_launches()
@@ -2654,17 +2672,19 @@ def main() -> int:
             return orig_apply(*a, **k)
 
         plain_calls = {"B2": 0, "W0": 0, "W1": 0, "W2": 0, "W3": 0,
-                       "W4": 0}
+                       "W4": 0, "W5": 0}
         saved9 = [counting(ktrav, "trace_rays", "B2"),
                   counting(ktrav, "trace_clipped_rays", "B2"),
+                  counting(kwave, "blit_plain", "W5"),
                   *count_wave_plain(plain_calls)]
         pathtrace.render_wave, pathtrace.film_init = counted_wave9, \
             logged_init
-        cli._apply_camera_input = logged_apply
+        live_mod._apply_camera_input = logged_apply
         orig_server, preview.PreviewServer = preview.PreviewServer, Served
         th9 = threading.Thread(target=client_run, daemon=True)
         stdout9 = io.StringIO()
         ktrav.trace.launches = 0
+        kwave.blit.launches = 0
         try:
             th9.start()
             t0 = time.perf_counter()
@@ -2675,10 +2695,11 @@ def main() -> int:
         finally:
             pathtrace.render_wave, pathtrace.film_init = orig_wave, \
                 orig_init
-            cli._apply_camera_input = orig_apply
+            live_mod._apply_camera_input = orig_apply
             preview.PreviewServer = orig_server
             restore(saved9)
         b2_launches9 = ktrav.trace.launches
+        blit_launches9 = kwave.blit.launches
         line = stdout9.getvalue().strip().splitlines()[-1]
         print(f"  render: rc {rc}, {loop_s:.2f} s; {line}")
         rec9 = json.loads(line)
@@ -2702,6 +2723,13 @@ def main() -> int:
             fail(f"a viewer wave did not launch W0-W4: {waves9}")
         if any(plain_calls.values()):
             fail(f"plain versions ran in the viewer: {plain_calls}")
+        # The served viewer presents every wave, and each frame's PNG once
+        # more: one W5 launch each.
+        print(f"  W5 launches in the viewer {blit_launches9}", flush=True)
+        if blit_launches9 != rec9["waves"] + rec9["frames"]:
+            fail(f"the viewer launched W5 {blit_launches9} times, not "
+                 f"{rec9['waves'] + rec9['frames']} (a wave's present and "
+                 f"a frame's PNG each)")
         if any(e for _, e, _ in waves9):
             fail(f"exhausted rays in the viewer: {waves9}")
         if th9.is_alive() or not got9.get("png", b"").startswith(
@@ -2728,6 +2756,62 @@ def main() -> int:
         del text
         if not keep:
             shutil.rmtree(out_dir)
+
+        # W5 on the films of real waves (view 0, two waves, so counts are
+        # 2): at the live viewer's 960x540 (render's default) and at this
+        # phase's shape, bit-equal to its plain version on the same CUDA
+        # tensors, then timed alone beside its bound (16 B read and 3 B
+        # written a pixel): launches queued behind a device sleep over
+        # copies of the film that exceed the L2, and events around each.
+        w5rec = {}
+        for ww, hh in ((960, 540), (w, h)):
+            arr5 = camera_arrays_for(cam0, sun, ww, hh, dev)
+            film5 = pathtrace.film_init(ww, hh, dev)
+            for _ in range(2):
+                rgb5, cnt5, _ = pathtrace.render_wave(
+                    world, arr5, cam0.brick_position, cfg, ww, hh,
+                    generator=gen)
+                film5 = pathtrace.film_add(film5, rgb5, cnt5)
+            n5 = ww * hh
+            before5 = kwave.blit.launches
+            got5 = kwave.blit(film5["rgb"], film5["count"], ww, hh)
+            want5 = owave.blit_plain(film5["rgb"], film5["count"], ww, hh)
+            levels5 = int(torch.unique(got5).numel())
+            if kwave.blit.launches != before5 + 1 or got5.shape != (
+                    hh, ww, 3) or not torch.equal(got5, want5):
+                fail(f"W5 at {ww}x{hh}: {kwave.blit.launches - before5} "
+                     f"launches, shape {tuple(got5.shape)}, "
+                     f"{int((got5 != want5).sum())} bytes differ from the "
+                     f"plain version")
+            if levels5 < 2:
+                fail(f"W5 at {ww}x{hh}: a uniform frame")
+            bms5, by5 = bound(19 * n5, 0)
+            copies5 = [(film5["rgb"].clone(), film5["count"].clone())
+                       for _ in range(benchmark.hbm_copies(19 * n5, dev))]
+            q5 = benchmark.kernel_alone_ms(
+                [lambda r=r, c=c: kwave.blit(r, c, ww, hh)
+                 for r, c in copies5], 200)
+            e5 = alone_ms(kwave.blit, lambda: kwave.blit(
+                film5["rgb"], film5["count"], ww, hh), 50)
+            p5 = host_ms(lambda: owave.blit_plain(
+                film5["rgb"], film5["count"], ww, hh))
+            w5rec[(ww, hh)] = (q5, e5, p5, bms5, by5)
+            print(f"  W5 at {ww}x{hh} ({n5} pixels, {levels5} levels): "
+                  f"equal to the plain version bit for bit; {q5:.4f} ms "
+                  f"queued over {len(copies5)} copies, {e5:.4f} ms by "
+                  f"events around each launch, bound {bms5:.4f} ms by "
+                  f"{by5} ({100 * bms5 / q5:.1f}% of it queued), plain "
+                  f"{p5:.4f} ms; ptxas blit_kernel: "
+                  f"{entry_ptxas('wave', 'blit_kernel')}", flush=True)
+            del copies5, film5, rgb5, cnt5, got5, want5
+        q5, e5, p5, bms5, by5 = w5rec[(960, 540)]
+        records["W5"] = {
+            "name": "blit (W5)", "route": "cuda",
+            "source": "brickmap_tpu_torch/csrc/wave.cu",
+            "replaces": "brickmap_tpu/render/pathtrace.py:52",
+            "launches": blit_launches9, "max_abs_err": 0.0, "ms": q5,
+            "plain_ms": p5, "bound_ms": bms5, "bound_by": by5,
+            "library_ms": None}
 
         # One full-world wave (view 0, 1080p, 3 bounces) under the
         # profiler: device operations by time and the device's idle share
@@ -3022,8 +3106,8 @@ def main() -> int:
     print(smi_line())
     print(json.dumps({"kernels": [records[k] for k in
                                   ("B1", "B2", "B3", "B4f", "B4b", "W0",
-                                   "W1", "W2", "W3", "W4", "R1", "R2",
-                                   "A1")]}))
+                                   "W1", "W2", "W3", "W4", "W5", "R1",
+                                   "R2", "A1")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
