@@ -21,7 +21,8 @@ sizes chosen on the device (``_ladder_switch``) and gates its rescue with
 where W2, B2 and W4 read it: on the card a wave makes no host round trip
 between W1 and the return of its final W3.  Per-lane results are the
 same: every ray is traced independently, every live one (no bucket drops
-any; ROADMAP.md §C2).
+any; ROADMAP.md §C2).  So :func:`render_wave` replays a wave that repeats
+as one CUDA graph (:mod:`~brickmap_tpu_torch.render.wave_graph`).
 
 Shading model = the reference's: pure diffuse albedo 1, sun NEE with cone
 sampling + 1e-5 radiance scale (kernel.cu:274-279), cosine-weighted bounce
@@ -41,6 +42,7 @@ from ..kernels import traverse as ktrav, wave as kwave
 from ..ops.wave import new_state
 from ..stream import pull_requests
 from ..utils.profiling import annotate, count as keep_count
+from . import wave_graph
 from .sampling import draw_wave_uniforms
 
 __all__ = ["render_wave", "wave_for_indices", "render_frame", "film_init",
@@ -85,17 +87,18 @@ def rescue_budget(cfg: BrickmapConfig) -> int:
         r.max_brick_steps + r.max_byte_steps)
 
 
-def _trace_live(st: dict, scene, cam_brick, cfg: BrickmapConfig) -> dict:
+def _trace_live(st: dict, scene, cam_brick, cfg: BrickmapConfig,
+                counts: list) -> dict:
     """Trace the wave's live rays with no host round trip: compact them
     (W0: the lanes and their count stay on the device), gather and clip
     them with W2 (which records each lane's row for W3), trace them with
     B2, compact the exhausted ones (W0) and rescue those in place (W4: up
     to RESCUE_PASSES passes with the escalated budget; rays still exhausted
     after them keep the flag and are counted by the wave).  Returns B2's
-    results over the compacted rays (rows past the count unwritten).  While
-    a profiler records, W0's count is kept as ``wave.trace_rays``."""
+    results over the compacted rays (rows past the count unwritten), and
+    appends W0's count of the live rays to ``counts``."""
     lanes, count = kwave.compact(st["live"])
-    keep_count("wave.trace_rays", count)
+    counts.append(count)
     inputs = kwave.gather_clip(st["rays_o"], st["rays_d"], lanes, count,
                                cfg.grid, pos=st["pos"])
     res = ktrav.trace_clipped(inputs, count, scene, cam_brick, cfg.grid,
@@ -143,30 +146,58 @@ def _check_uniforms(uniforms: dict) -> None:
 
 
 def _wave(scene, idx, camera_arrays: dict, cam_brick, cfg: BrickmapConfig,
-          width: int, height: int, generator, uniforms, dst=None):
+          width: int, height: int, generator, uniforms, dst=None,
+          graph=None):
+    """The wave: its uniforms drawn (or ``uniforms`` checked), then W1 to
+    the final W3 launched kernel by kernel or, with ``graph`` (a
+    :class:`~brickmap_tpu_torch.render.wave_graph.Call`, which the
+    uniforms are drawn into), replayed as one CUDA graph.  While a profiler
+    records, W0's count of each trace is kept as ``wave.trace_rays``."""
     with annotate("bm.wave"):
         with annotate("bm.wave.uniforms"):
             if uniforms is None:
                 uniforms = draw_wave_uniforms(
                     idx.shape[0], cfg.render.max_bounces, generator,
-                    scene.device)
+                    scene.device, out=None if graph is None
+                    else graph.uniforms)
             else:
                 _check_uniforms(uniforms)
-        sun_dir = camera_arrays["sun_direction"]
-        with annotate("bm.wave.primary"):
-            st = new_state(idx.shape[0], scene.device)
-            kwave.primary(idx, uniforms, camera_arrays, width, height, st)
-        for bounce in range(cfg.render.max_bounces + 1):
-            with annotate("bm.wave.trace"):
-                res = _trace_live(st, scene, cam_brick, cfg)
-            with annotate("bm.wave.shade"):
-                kwave.shade(bounce, st, res, uniforms["cone"][bounce],
-                            uniforms["hemi"][bounce], sun_dir, cfg)
+
+        def trace(u, cam):
+            return _trace_wave(scene, idx, u, cam, cam_brick, cfg, width,
+                               height, dst)
+
+        rgb, count, req, counts = (trace(uniforms, camera_arrays)
+                                   if graph is None
+                                   else graph.run(camera_arrays, trace))
+    for c in counts:
+        keep_count("wave.trace_rays", c)
+    return rgb, count, req
+
+
+def _trace_wave(scene, idx, uniforms: dict, camera_arrays: dict, cam_brick,
+                cfg: BrickmapConfig, width: int, height: int, dst):
+    """W1, then a trace and W3 a bounce, the final shadow trace and the
+    final W3: (rgb, count, requests, W0's count of each trace's live rays),
+    with no host round trip on the card."""
+    counts: list = []
+    sun_dir = camera_arrays["sun_direction"]
+    with annotate("bm.wave.primary"):
+        st = new_state(idx.shape[0], scene.device)
+        kwave.primary(idx, uniforms, camera_arrays, width, height, st)
+    for bounce in range(cfg.render.max_bounces + 1):
         with annotate("bm.wave.trace"):
-            res = _trace_live(st, scene, cam_brick, cfg)
+            res = _trace_live(st, scene, cam_brick, cfg, counts)
         with annotate("bm.wave.shade"):
-            return kwave.shade(cfg.render.max_bounces + 1, st, res, None,
-                               None, sun_dir, cfg, final=True, dst=dst)
+            kwave.shade(bounce, st, res, uniforms["cone"][bounce],
+                        uniforms["hemi"][bounce], sun_dir, cfg)
+    with annotate("bm.wave.trace"):
+        res = _trace_live(st, scene, cam_brick, cfg, counts)
+    with annotate("bm.wave.shade"):
+        rgb, count, req = kwave.shade(cfg.render.max_bounces + 1, st, res,
+                                      None, None, sun_dir, cfg, final=True,
+                                      dst=dst)
+    return rgb, count, req, counts
 
 
 def wave_for_indices(scene, idx, camera_arrays: dict, cam_brick,
@@ -197,12 +228,23 @@ def render_wave(scene, camera_arrays: dict, cam_brick, cfg: BrickmapConfig,
     order (W3 writes each lane's at its pixel).  ``uniforms`` are in that
     tile (lane) order.
 
+    On the card a wave whose :func:`~brickmap_tpu_torch.render.wave_graph.
+    wave_key` repeats runs as one CUDA graph (:mod:`~brickmap_tpu_torch.
+    render.wave_graph`): captured on the third of three consecutive calls
+    with the key, replayed on later ones, bit-equal to the eager wave for
+    the same generator state.  A replay makes no device-to-host copy and no
+    synchronising call; its outputs are copies out of the graph's memory,
+    the caller's to keep.  ``wave_graph.calls`` counts the calls each way;
+    while a profiler records, each call keeps ``wave.graph_replays`` (1
+    where the wave ran as a graph).
+
     Returns (delta_rgb [N,3], delta_count [N], requests dict with ``mask``,
     ``pos``, ``traced_rays`` and ``exhausted_rays``) — add to a Film.
     """
     perm = _tile_order(width, height, scene.device)
     return _wave(scene, perm, camera_arrays, cam_brick, cfg, width, height,
-                 generator, uniforms, dst=perm)
+                 generator, uniforms, dst=perm, graph=wave_graph.prepare(
+                     scene, perm, cam_brick, cfg, width, height, uniforms))
 
 
 def render_frame(scene, camera_arrays: dict, cam_brick, cfg: BrickmapConfig,

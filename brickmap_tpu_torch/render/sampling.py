@@ -21,6 +21,7 @@ import torch
 
 __all__ = [
     "draw_wave_uniforms",
+    "empty_wave_uniforms",
     "stratified_2d",
     "concentric_disk",
     "orthonormal_basis",
@@ -31,25 +32,40 @@ __all__ = [
 
 
 def draw_wave_uniforms(n: int, max_bounces: int, generator=None,
-                       device="cuda") -> dict:
+                       device="cuda", out: dict | None = None) -> dict:
     """Every uniform one sample wave of ``n`` lanes consumes, in lane order:
 
     * ``stratum`` int64 [n] in [0, 16) and ``jitter`` [n, 2]: pixel jitter;
     * ``lens`` [n, 2]: thin-lens sample;
     * ``cone`` [bounces+1, 2, n]: sun-cone (azimuth, cos) uniforms per bounce;
     * ``hemi`` [bounces+1, 2, n]: bounce-direction uniforms per bounce.
-    """
-    def u(*shape):
-        return torch.rand(shape, generator=generator, device=device)
 
-    return {
-        "stratum": torch.randint(0, 16, (n,), generator=generator,
-                                 device=device),
-        "jitter": u(n, 2),
-        "lens": u(n, 2),
-        "cone": u(max_bounces + 1, 2, n),
-        "hemi": u(max_bounces + 1, 2, n),
-    }
+    New tensors on ``device``, or, with ``out`` (a dict of those tensors,
+    e.g. a captured wave's inputs), drawn in place into it: the same bits.
+    """
+    if out is None:
+        def u(*shape):
+            return torch.rand(shape, generator=generator, device=device)
+
+        return {"stratum": torch.randint(0, 16, (n,), generator=generator,
+                                         device=device),
+                "jitter": u(n, 2), "lens": u(n, 2),
+                "cone": u(max_bounces + 1, 2, n),
+                "hemi": u(max_bounces + 1, 2, n)}
+    out["stratum"].random_(0, 16, generator=generator)
+    for k in ("jitter", "lens", "cone", "hemi"):
+        out[k].uniform_(generator=generator)
+    return out
+
+
+def empty_wave_uniforms(n: int, max_bounces: int, device="cuda") -> dict:
+    """:func:`draw_wave_uniforms`' tensors, allocated and not drawn."""
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    return {"stratum": empty(n, dtype=torch.int64), "jitter": empty(n, 2),
+            "lens": empty(n, 2), "cone": empty(max_bounces + 1, 2, n),
+            "hemi": empty(max_bounces + 1, 2, n)}
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:

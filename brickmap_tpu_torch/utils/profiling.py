@@ -36,7 +36,7 @@ import os
 
 import torch
 
-__all__ = ["trace", "annotate", "count", "take_counts"]
+__all__ = ["trace", "annotate", "count", "recording", "take_counts"]
 
 _recording = torch.autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
@@ -90,6 +90,12 @@ def count(name: str, value) -> None:
     is read by :func:`take_counts`."""
     if _recording():
         _counts.setdefault(name, []).append(value)
+
+
+def recording() -> bool:
+    """Whether a torch profiler records, so that :func:`count` keeps what
+    it is given (for a caller that would make a value only to keep it)."""
+    return _recording()
 
 
 def take_counts() -> dict:

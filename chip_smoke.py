@@ -56,8 +56,9 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    where rays exhaust: view 0's primaries traced
    with a starved budget, rescued with the wave's budget (none left) and
    with a starved one (some left), against the plain rescue passes, and
-   W4 timed there.  One view-0 wave under
-   ``torch.cuda.set_sync_debug_mode("error")``: no synchronising call.
+   W4 timed there.  Under ``torch.cuda.set_sync_debug_mode("error")``
+   a first sighting of a wave's key (launched kernel by kernel) and a
+   replay of view 0's captured CUDA graph: no synchronising call.
    Each wave of the benchmark must launch B2, W2, W3 and W4 5 times, W0
    10 and W1 once; no plain version may run.  Last, whole waves through
    W0-W4 against the same waves with their plain versions swapped in
@@ -65,6 +66,18 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    trace budget): W2 equal to its plain version at each of the wave's 5
    traces, rgb within rtol 1e-4 / atol 1e-5, count, requests, traced and
    exhausted (0) equal;
+5b. the wave as a CUDA graph (``render/wave_graph.py``): the 9 views at
+   1920x1080 eagerly (B2's event hook set), then through the graphs on a
+   stream of their own (each view's first two waves eager, its third
+   captured, its fourth replayed, then a cycle in which view 0, evicted
+   from the 8 graphs kept, runs eagerly and views 1-8 replay), every wave
+   equal to the eager one bit for bit and ``render_wave``'s eager,
+   capture and replay counts as the rule says; the peak allocation of
+   each pass and
+   the host ms of an eager call and a replay; one profiled replay: one
+   ``cudaGraphLaunch``, 36 device kernels (the five draws and the
+   graph's 31), no copy to the host, no stream synchronise,
+   ``wave.graph_replays`` [1] and a ``wave.trace_rays`` count a trace;
 6. kernels B3 (segment recorder), B4f and B4b (the visited voxels' values
    read from the pool fields, and their cotangents added back with
    atomics) against their plain versions on the phase-4 terrain, resident
@@ -133,7 +146,8 @@ is removed.  Phases, each printing its seconds; any failure raises and exits non
    3 bounces, view 0's camera orbiting a point 300 voxels ahead of it; a
    client thread fetches ``/frame.png`` and ``/stats.json`` from the served
    page and posts one fly-camera move.  Three PNGs and ``frames`` 3, B2 and
-   W0-W4 in every wave, W5 (the 8-bit present) once a wave and once a
+   W0-W4 in every wave launched kernel by kernel (a replayed one launches
+   its graph and no wrapper), W5 (the 8-bit present) once a wave and once a
    frame's PNG, no plain version, 0 exhausted, the post applied
    once and followed by a film reset, and the trace file naming
    ``traverse_kernel``.  Then W5 on the films of two view-0 waves at
@@ -173,6 +187,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -500,7 +515,7 @@ def main() -> int:
     from brickmap_tpu_torch.ops import wave as owave
     from brickmap_tpu_torch.ops.traverse import trace_clipped_rays, \
         trace_rays
-    from brickmap_tpu_torch.render import pathtrace
+    from brickmap_tpu_torch.render import pathtrace, wave_graph
     from brickmap_tpu_torch.render.camera import Camera, \
         camera_arrays_for, primary_rays_from_arrays
     from brickmap_tpu_torch.render.sampling import draw_wave_uniforms
@@ -1230,12 +1245,20 @@ def main() -> int:
               f"({100 * w4_bms / w4_ms:.1f}%)", flush=True)
         del res, saved
 
-        # One view-0 wave with every synchronising call an error: no host
-        # round trip between W1 and the final W3.  The mode must refuse a
-        # nonzero, or it checks nothing.  A first wave of a frame size
-        # copies its tile order and the sky constants to the card once.
-        pathtrace.render_wave(world, arrays, cam_b, cfg, w, h, generator=gen)
+        # Waves with every synchronising call an error: no host round trip
+        # between W1 and the final W3, launched kernel by kernel (the first
+        # sighting of a key) and replayed as a CUDA graph.  The mode must
+        # refuse a nonzero, or it checks nothing.  A first wave of a frame
+        # size copies its tile order and the sky constants to the card
+        # once; the third wave in a row of a key captures it (a capture
+        # may synchronise).
+        for _ in range(3):
+            pathtrace.render_wave(world, arrays, cam_b, cfg, w, h,
+                                  generator=gen)
         torch.cuda.synchronize()
+        cam_moved = (cam_b[0] + 1, *cam_b[1:])
+        ways0 = (wave_graph.calls[wave_graph.EAGER],
+                 wave_graph.calls[wave_graph.REPLAY])
         torch.cuda.set_sync_debug_mode("error")
         try:
             try:
@@ -1244,6 +1267,8 @@ def main() -> int:
             except RuntimeError:
                 pass
             try:
+                first = pathtrace.render_wave(world, arrays, cam_moved, cfg,
+                                              w, h, generator=gen)
                 got = pathtrace.render_wave(world, arrays, cam_b, cfg, w, h,
                                             generator=gen)
             except RuntimeError as e:
@@ -1251,10 +1276,18 @@ def main() -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        print(f"  one view-0 wave under set_sync_debug_mode('error'): no "
-              f"synchronising call; {int(got[2]['traced_rays'])} rays "
-              f"traced, {int(got[2]['exhausted_rays'])} exhausted",
-              flush=True)
+        ways = (wave_graph.calls[wave_graph.EAGER] - ways0[0],
+                wave_graph.calls[wave_graph.REPLAY] - ways0[1])
+        if ways != (1, 1):
+            fail(f"under set_sync_debug_mode('error') {ways[0]} eager waves "
+                 f"and {ways[1]} replays, not 1 and 1")
+        print(f"  a first sighting and a replay of view 0's wave under "
+              f"set_sync_debug_mode('error'): no synchronising call; "
+              f"{int(first[2]['traced_rays'])} and "
+              f"{int(got[2]['traced_rays'])} rays traced, "
+              f"{int(first[2]['exhausted_rays'])} and "
+              f"{int(got[2]['exhausted_rays'])} exhausted", flush=True)
+        del first
         del st, ref, u5, got
 
         # Count plain-version calls during the main path: there must be none.
@@ -1515,6 +1548,124 @@ def main() -> int:
                   f"{int(got[2]['traced_rays'])} traced and 0 exhausted "
                   f"equal", flush=True)
             del got, want, u
+
+    # ------------------------------------------------------------------
+    with phase("5b the wave as a CUDA graph: views 0-8 at 1920x1080, eager "
+               "against graphed"):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from brickmap_tpu_torch.utils import profiling
+
+        cams5b = benchmark.benchmark_cameras()
+        arrays5b = [camera_arrays_for(c, sun, w, h, dev) for c in cams5b]
+        nv = len(cams5b)
+
+        def wave5b(v):
+            """View v's wave from its own seed: (outputs, host ms)."""
+            gen.manual_seed(5_000_000_000 + v)
+            t = time.perf_counter()
+            out = pathtrace.render_wave(world, arrays5b[v],
+                                        cams5b[v].brick_position, cfg, w, h,
+                                        generator=gen)
+            ms = (time.perf_counter() - t) * 1e3
+            torch.cuda.synchronize()
+            return out, ms
+
+        def flat(out):
+            return (out[0], out[1], *(out[2][k] for k in (
+                "mask", "pos", "traced_rays", "exhausted_rays")))
+
+        # The eager waves (B2's event hook keeps a wave eager), kept on the
+        # host; the peak allocation of each pass over what it started with.
+        torch.cuda.synchronize()
+        base5b = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ktrav.trace.events = []
+        try:
+            want, eager_ms = [], []
+            for v in range(nv):
+                out, ms = wave5b(v)
+                want.append([t.cpu() for t in flat(out)])
+                eager_ms.append(ms)
+        finally:
+            ktrav.trace.events = None
+        del out
+        peak_eager = torch.cuda.max_memory_allocated() - base5b
+        # The same waves through the graphs, on a stream (and so a table)
+        # of their own: each view's first two waves eager, its third
+        # captured, its fourth replayed; then a second cycle, in which view
+        # 0 (the least recently used of 9 views over 8 graphs) runs eagerly
+        # and views 1-8 replay.
+        way_names = (wave_graph.EAGER, wave_graph.CAPTURE, wave_graph.REPLAY)
+        ways0 = [wave_graph.calls[k] for k in way_names]
+        torch.cuda.reset_peak_memory_stats()
+        s5b = torch.cuda.Stream()
+        replay_ms, differ = [], []
+        with torch.cuda.stream(s5b):
+            for cycle, calls in ((0, 4), (1, 1)):
+                for v in range(nv):
+                    for c in range(calls):
+                        out, ms = wave5b(v)
+                        if (cycle, c) == (0, 3) or (cycle, v) > (1, 0):
+                            replay_ms.append(ms)
+                        if not all(torch.equal(a.cpu(), b) for a, b in
+                                   zip(flat(out), want[v])):
+                            differ.append((cycle, v, c))
+            peak_graph = torch.cuda.max_memory_allocated() - base5b
+            ways = tuple(wave_graph.calls[k] - b
+                         for k, b in zip(way_names, ways0))
+            # One replay under the profiler: one graph launch, no copy to
+            # the host and no stream synchronise.
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof5b:
+                out, _ = wave5b(nv - 1)
+        kept5b = profiling.take_counts()
+        kinds5b = {"kernel": 0, "DtoH": 0, "DtoD": 0, "other copy": 0,
+                   "span": 0}
+        calls5b = {}
+        for e in prof5b.events():
+            if e.device_type == DeviceType.CUDA:
+                # "span": the program's spans drawn on the device's track.
+                k = ("span" if e.name.startswith("bm.")
+                     else "kernel" if not e.name.startswith(("Memcpy",
+                                                             "Memset"))
+                     else "DtoH" if "DtoH" in e.name
+                     else "DtoD" if "DtoD" in e.name else "other copy")
+                kinds5b[k] += 1
+            elif e.name in ("cudaGraphLaunch", "cudaLaunchKernel",
+                            "cudaStreamSynchronize", "cudaDeviceSynchronize",
+                            "cudaMemcpyAsync"):
+                calls5b[e.name] = calls5b.get(e.name, 0) + 1
+        print(f"  9 views x 4 waves, then a cycle of 1: eager, captures, "
+              f"replays {ways}; every wave equal to the eager wave bit for "
+              f"bit: {not differ} {differ[:6]}; host ms a call (median) "
+              f"eager {statistics.median(eager_ms):.3f}, replay "
+              f"{statistics.median(replay_ms):.3f}; peak allocation over "
+              f"the pass's start: eager {peak_eager} B, graphed "
+              f"{peak_graph} B (+{peak_graph - peak_eager} B), "
+              f"{torch.cuda.max_memory_allocated()} B in all", flush=True)
+        print(f"  one profiled replay (view {nv - 1}): device kernels "
+              f"{kinds5b['kernel']}, copies device-to-host "
+              f"{kinds5b['DtoH']}, device-to-device {kinds5b['DtoD']}, "
+              f"other {kinds5b['other copy']}, span images "
+              f"{kinds5b['span']}; host calls {calls5b}; kept "
+              f"wave.graph_replays {kept5b.get('wave.graph_replays')}, "
+              f"wave.trace_rays {kept5b.get('wave.trace_rays')}", flush=True)
+        if differ:
+            fail(f"graphed waves differ from the eager ones: {differ}")
+        if ways != (2 * nv + 1, nv, 2 * nv - 1):
+            fail(f"eager, captures, replays {ways}, not "
+                 f"{(2 * nv + 1, nv, 2 * nv - 1)}")
+        # The five draws, then the graph: W1, and a W3 and five kernels
+        # (W0, W2, B2, W0, W4) a trace.
+        if kinds5b["DtoH"] or calls5b.get("cudaStreamSynchronize") \
+                or calls5b.get("cudaGraphLaunch") != 1 \
+                or kinds5b["kernel"] != 6 + 6 * traces \
+                or kept5b.get("wave.graph_replays") != [1] \
+                or len(kept5b.get("wave.trace_rays", [])) != traces:
+            fail(f"the profiled replay: {kinds5b}, {calls5b}, {kept5b}")
+        del want, out, prof5b, arrays5b
 
     # ------------------------------------------------------------------
     from brickmap_tpu_torch.diff import optim as doptim, sparse as dsparse
@@ -2657,10 +2808,12 @@ def main() -> int:
 
         def counted_wave9(*a, **k):
             before, w_before = ktrav.trace.launches, w_launches()
+            r_before = wave_graph.calls[wave_graph.REPLAY]
             out = orig_wave(*a, **k)
             waves9.append((ktrav.trace.launches - before,
                            int(out[2]["exhausted_rays"]),
-                           [x - y for x, y in zip(w_launches(), w_before)]))
+                           [x - y for x, y in zip(w_launches(), w_before)],
+                           wave_graph.calls[wave_graph.REPLAY] - r_before))
             return out
 
         def logged_init(*a, **k):
@@ -2706,9 +2859,10 @@ def main() -> int:
         pngs = sorted(f for f in os.listdir(out_dir)
                       if f.startswith("view_") and f.endswith(".png"))
         print(f"  B2 launches {b2_launches9}, per wave "
-              f"{[n for n, _, _ in waves9]}, exhausted "
-              f"{[e for _, e, _ in waves9]}; W1, W2, W3, W0, W4 per wave "
-              f"{[x for _, _, x in waves9]}; PNGs {pngs}; film events "
+              f"{[n for n, _, _, _ in waves9]}, exhausted "
+              f"{[e for _, e, _, _ in waves9]}; W1, W2, W3, W0, W4 per wave "
+              f"{[x for _, _, x, _ in waves9]}; replayed "
+              f"{[r for _, _, _, r in waves9]}; PNGs {pngs}; film events "
               f"{events9}; served: frame.png {len(got9.get('png', b''))} "
               f"bytes, stats {got9.get('stats')}, POST /camera -> "
               f"{got9.get('post')}", flush=True)
@@ -2716,11 +2870,19 @@ def main() -> int:
             fail(f"the viewer run: rc {rc}, {rec9}")
         if pngs != ["view_000.png", "view_001.png", "view_002.png"]:
             fail(f"the viewer wrote {pngs}")
-        if len(waves9) != 6 or min(n for n, _, _ in waves9) < 1 \
-                or b2_launches9 != sum(n for n, _, _ in waves9):
+        # A wave that ran kernel by kernel (or was captured) launched B2
+        # and W0-W4; a replayed one launched its graph and no wrapper.
+        launched9 = [(n, x) for n, _, x, r in waves9 if not r]
+        replayed9 = [(n, x) for n, _, x, r in waves9 if r]
+        if len(waves9) != 6 or not launched9 \
+                or min(n for n, _ in launched9) < 1 \
+                or b2_launches9 != sum(n for n, _, _, _ in waves9):
             fail(f"a viewer wave did not launch B2: {waves9}")
-        if min(min(x) for _, _, x in waves9) < 1:
+        if min(min(x) for _, x in launched9) < 1:
             fail(f"a viewer wave did not launch W0-W4: {waves9}")
+        if any(n or any(x) for n, x in replayed9) \
+                or any(r not in (0, 1) for _, _, _, r in waves9):
+            fail(f"a replayed viewer wave launched a wrapper: {waves9}")
         if any(plain_calls.values()):
             fail(f"plain versions ran in the viewer: {plain_calls}")
         # The served viewer presents every wave, and each frame's PNG once
@@ -2730,7 +2892,7 @@ def main() -> int:
             fail(f"the viewer launched W5 {blit_launches9} times, not "
                  f"{rec9['waves'] + rec9['frames']} (a wave's present and "
                  f"a frame's PNG each)")
-        if any(e for _, e, _ in waves9):
+        if any(e for _, e, _, _ in waves9):
             fail(f"exhausted rays in the viewer: {waves9}")
         if th9.is_alive() or not got9.get("png", b"").startswith(
                 b"\x89PNG") or got9.get("post") != 204 \
